@@ -2,8 +2,9 @@ import time, sys, os
 import os
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
-jax.config.update("jax_compilation_cache_dir", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from scx.core.cache import enable_compile_cache
+
+enable_compile_cache()
 import jax.numpy as jnp, numpy as np
 from scx import render as rd
 from scx.render import pipeline as pipe

@@ -1,15 +1,15 @@
 """Cost-model microbenchmarks: the measured constants PERF.md builds on.
 
-Measures, on the current backend, the primitive rates every scx design
-rule cites (CLAUDE.md platform quirks 4/6/8; PERF.md "machine model"):
+Measures, on the current backend, the primitive rates several scx design
+choices rest on:
 
   * gather rows/s   — packed-row gathers ([T, W] rows by random index)
   * scatter rows/s  — row scatter-adds (the .at[idx].add pattern)
-  * one-hot matmul  — the solver's gather/scatter replacement (MXU)
-  * top_k / argsort — the compaction primitives (TPU-hostile baseline)
-  * elementwise     — fused VPU column math (the "free" baseline)
+  * one-hot matmul  — the solver's gather/scatter replacement
+  * top_k / argsort — the compaction primitives
+  * elementwise     — fused column math (the "free" baseline)
 
-Method per CLAUDE.md trap 10: each op is timed as a device-chained
+Method: each op is timed as a device-chained
 `lax.scan` with a per-iteration data perturbation (so XLA can't hoist it),
 in ONE jit per op. Prints one BENCH_JSON line per op plus a summary line;
 runs in ~2-4 min warm. Shapes default to the RL-fleet scale the design
@@ -25,13 +25,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
-    ),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from scx.core.cache import enable_compile_cache
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
@@ -101,9 +97,9 @@ def main():
 
     # --- one-hot matmul (solver's scatter replacement): [C,N]@[N,6] -------
     # measured at BOTH precisions: the solver runs Precision.HIGHEST
-    # (CLAUDE.md quirk 2 — default TPU matmul is bf16 passes, too coarse
+    # (the default f32 matmul may run in reduced precision, too coarse
     # for contact impulses), so the HIGHEST number is the one its cost
-    # model uses; the default-precision rate shows the bf16 headroom.
+    # model uses; the default-precision rate shows the headroom.
     c, nb = 1024, 256
     onehot = (
         (jax.random.randint(key, (c,), 0, nb)[:, None] == jnp.arange(nb)[None, :])

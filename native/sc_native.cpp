@@ -2,7 +2,7 @@
 //
 // The reference implements its data plane in C++ (tools/shared/world_format.cpp
 // sector codec, mesh import, the streaming workers); this library is the
-// TPU-native build's equivalent: a fast sector-file codec and procedural
+// engine's equivalent: a fast sector-file codec and procedural
 // spawn baker exposed through a plain C ABI (loaded from Python via ctypes).
 // The hot host path — sector IO + bake into SoA arrays during streaming —
 // runs here; array math on device stays in XLA/Pallas.

@@ -1,13 +1,13 @@
 """Micro-A/B of per-pair body-row gather formulations at bench scale
 (E=1024, N=64, P=128, W=14): the planar narrowphase's two row gathers
-measured 2.4 ms/step as HIGHEST-precision one-hot matmuls that XLA
-emitted as VPU reduce fusions instead of MXU dots.
+are HIGHEST-precision one-hot matmuls; this compares them with the
+other forms.
 
 Forms:
   onehot14 — current: [14, N] @ [N, P] batched, precision HIGHEST
-  onehot_pad — rows padded to [128, N] so every dim is MXU-shaped
+  onehot_pad — rows padded to [128, N]
   rowgather — vmapped rows[ia] (batched row gather)
-  onehot_hi — [14, N] @ [N, P] with precision HIGH (3 bf16 passes)
+  onehot_hi — [14, N] @ [N, P] with precision HIGH
 
 Chained scans with per-iteration index perturbation, host-read verified.
 """
@@ -21,11 +21,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from scx.core.cache import enable_compile_cache
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
@@ -117,10 +115,6 @@ def main():
         float(jnp.sum(out))
         compiled[name] = chain(f)
         print(f"compiled {name} in {time.time()-t0:.1f}s", flush=True)
-
-    if jax.default_backend() != "cpu":
-        print("quiet wait 45s...", flush=True)
-        time.sleep(45)
 
     for name, f in compiled.items():
         t0 = time.time()

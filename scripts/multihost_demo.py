@@ -50,7 +50,7 @@ def main():
     import jax
 
     if not multi and jax.device_count() < 2:
-        # single real chip: bootstrap a virtual CPU mesh (same trick as
+        # one real device: bootstrap a virtual CPU mesh (same trick as
         # __graft_entry__.dryrun_multichip)
         os.environ["XLA_FLAGS"] = (
             os.environ.get("XLA_FLAGS", "")

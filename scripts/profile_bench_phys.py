@@ -1,10 +1,9 @@
 """Stage attribution of the HEADLINE bench step (bench.py config #2:
 1024 envs x 64 bodies, max_pairs=256, 6 warm iterations).
 
-The read-verified primary measured ~3.9k env-steps/s (264 ms/fleet-step)
-where the padded-layout roofline predicts ~1 ms — this script attributes
-the gap with prefix chains inside step_bodies_cached, each timed as a
-device-chained lax.scan ending in a HOST READ (CLAUDE.md quirks 10/12).
+Attributes the conventional-layout step's time with prefix chains inside
+step_bodies_cached, each timed as a device-chained lax.scan ending in a
+HOST READ.
 
 Usage: python scripts/profile_bench_phys.py [--envs 1024] [--iters 10] [--cpu]
 """
@@ -18,11 +17,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from scx.core.cache import enable_compile_cache
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 
@@ -33,7 +30,6 @@ def main():
     ap.add_argument("--bodies", type=int, default=64)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--cpu", action="store_true")
-    ap.add_argument("--quiet-wait", type=float, default=60.0)
     args = ap.parse_args()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
@@ -131,10 +127,6 @@ def main():
         out = fn(batch, cache) if tc else fn(batch)
         force(out)
         print(f"compiled {name} in {time.time()-t0:.1f}s", flush=True)
-
-    if jax.default_backend() != "cpu":
-        print(f"quiet wait {args.quiet_wait:.0f}s...", flush=True)
-        time.sleep(args.quiet_wait)
 
     results = {}
     for name, (fn, tc) in stages.items():

@@ -1,6 +1,6 @@
-"""Stage attribution of the baked 720p city frame (VERDICT r3 item 3).
+"""Stage attribution of the baked 720p city frame.
 
-Chained-scan deltas (CLAUDE.md quirk 10) over the exact stages of
+Chained-scan deltas over the exact stages of
 render_frame_baked -> _raster_and_shade: setup / cluster bounds+compact /
 bin / raster / shade. Prints each cumulative stage and the per-stage
 deltas so the next roofline lever is chosen by data.
@@ -25,15 +25,12 @@ def main():
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--grid", type=int, default=22)
-    ap.add_argument("--quiet-wait", type=float, default=45.0)
     args = ap.parse_args()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from scx.core.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import jax.numpy as jnp
     import numpy as np
@@ -133,10 +130,6 @@ def main():
         jax.block_until_ready(f())
         compiled[name] = f
         print(f"compiled {name} in {time.time()-t0:.1f}s", flush=True)
-
-    if jax.default_backend() != "cpu":
-        print(f"quiet wait {args.quiet_wait:.0f}s...", flush=True)
-        time.sleep(args.quiet_wait)
 
     results = {}
     for name, f in compiled.items():

@@ -1,7 +1,6 @@
 """A/B the planar physics fleet step vs the conventional layout at the
 headline bench config (1024 envs x 64 bodies, max_pairs 256, 6 warm
-iterations). Device-chained scans, host-read-verified (CLAUDE.md quirks
-10/12).
+iterations). Device-chained scans, each ending in a host read.
 
 Usage: python scripts/profile_planar.py [--envs 1024] [--iters 20]
        [--skip-conv] [--pairs 256] [--cpu]
@@ -16,11 +15,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from scx.core.cache import enable_compile_cache
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 
@@ -37,7 +34,6 @@ def main():
     ap.add_argument("--box-kinds", action="store_true",
                     help="SolverParams(shape_kinds=('box',)) specialization")
     ap.add_argument("--cpu", action="store_true")
-    ap.add_argument("--quiet-wait", type=float, default=60.0)
     args = ap.parse_args()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
@@ -140,10 +136,6 @@ def main():
         force(out)
         compiled[name] = (fn, out, force)
         print(f"compiled+first {name} in {time.time()-t0:.1f}s", flush=True)
-
-    if jax.default_backend() != "cpu":
-        print(f"quiet wait {args.quiet_wait:.0f}s...", flush=True)
-        time.sleep(args.quiet_wait)
 
     for name, (fn, warm, force) in compiled.items():
         t0 = time.time()

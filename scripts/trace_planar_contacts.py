@@ -1,5 +1,5 @@
-"""Capture a device trace of the planar narrowphase chain (the 19.9 ms/step
-stage at 1024x64) and print the top ops by self time.
+"""Capture a device trace of the planar narrowphase chain at 1024x64 and
+print the top ops by self time.
 
 Usage: python scripts/trace_planar_contacts.py [--envs 1024] [--out DIR]
 """
@@ -17,11 +17,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from scx.core.cache import enable_compile_cache
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 
@@ -87,7 +85,6 @@ def main():
     out = chain(pb, pc)
     print("compiled in", round(time.time() - t0, 1), flush=True)
     print("warm", float(jnp.sum(out[0].pos.y)), flush=True)
-    time.sleep(30)
 
     t0 = time.time()
     out = chain(pb, pc)
@@ -108,13 +105,13 @@ def main():
     with gzip.open(files[-1], "rt") as f:
         tr = json.load(f)
     events = tr.get("traceEvents", [])
-    # find device pids (track names containing TPU/device)
+    # find device pids (track names naming a device)
     pid_names = {}
     for e in events:
         if e.get("ph") == "M" and e.get("name") == "process_name":
             pid_names[e["pid"]] = e["args"].get("name", "")
     dev_pids = {p for p, n in pid_names.items()
-                if "TPU" in n or "/device" in n.lower() or "Chip" in n}
+                if "/device" in n.lower() or "gpu" in n.lower()}
     tot = defaultdict(float)
     cnt = defaultdict(int)
     for e in events:

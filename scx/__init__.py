@@ -1,4 +1,4 @@
-"""scx — SC-GameEngine-TPU: a TPU-native batched sim+render engine.
+"""scx — a batched sim+render engine in JAX.
 
 A ground-up JAX/XLA/Pallas rebuild of the capability surface of
 SandboxCityEngine (reference: Skeletus/SC-GameEngine): flat ECS + scheduler,
@@ -10,7 +10,7 @@ over thousands of city scenes.
 Layer map (mirrors reference AGENTS.md:27-44 Core -> Engine -> Sandbox):
   scx.core      -- math, PRNG (bit-compatible hashes), config, timing, logging
   scx.state     -- SoA entity state (functional ECS) + scheduler
-  scx.ops       -- Pallas TPU kernels (rasterizer & friends)
+  scx.ops       -- Pallas kernels (the rasterizer)
   scx.physics   -- rigid bodies, broadphase, impulse solver, queries, vehicles
   scx.world     -- sector formats, procedural gen, streaming, culling
   scx.traffic   -- lane graph, spawner, LOD tiers, AI

@@ -18,8 +18,8 @@ so the terminal viewer, tests, and scripts all drive ONE code path:
 
 Host-side values (streaming/traffic budgets) apply instantly, like the
 reference. Values baked into the jitted device tick (solver iterations,
-LOD bands) rebuild the tick jit on set — the recompile is the TPU-native
-price of changing a compile-time constant; per-entity vehicle tuning was
+LOD bands) rebuild the tick jit on set — the recompile is the price of
+changing a compile-time constant; per-entity vehicle tuning was
 deliberately kept in device columns (scx/physics/vehicle.py:105) so the
 common case — handling sliders — stays recompile-free.
 """

@@ -19,7 +19,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from scx.core import struct
 
 from scx.app.sandbox import SimParams, make_sim_tick, spawn_player_vehicle
 from scx.physics.solver import SolverParams
@@ -69,16 +69,12 @@ class CityRLEnv:
         seed: int = 1337,
         substeps: int = 1,
         interpret: bool | None = None,
-        # 64 measured fastest for the 128x128 obs (882 vs 767 env-steps/s
-        # at 1024 envs against tile_h=16; same sweep direction as the 720p
-        # tile win — fewer per-tile fixed costs beat a tighter lattice)
+        # binning tile height of the obs frame (fewer, larger tiles mean
+        # fewer per-tile list costs)
         obs_tile_h: int = 64,
-        # obs raster path: the triangle binner measured 3x faster than the
-        # batched cluster kernel at obs scale even for 512-capacity GLB
-        # scenes (48.9 vs 146 ms/256-env step at 128x128, tile_h=16 —
-        # per-tile triangle lists are tight when the lattice is 8 tiles);
-        # the cluster kernel wins on LARGE framebuffers (720p+), keep it
-        # as the opt-in for batched big-frame rendering
+        # obs raster path: per-tile triangle lists are tight when a frame
+        # has few tiles, so the triangle-binned kernel is the default; the
+        # cluster kernel is the opt-in for large frames and large scenes
         use_cluster_obs: bool | None = None,
         # world art: list of (verts [V,8], tris [T,3]) pool meshes (e.g.
         # GLB imports via scx.assets.gltf); defaults to the builtins.
@@ -126,8 +122,7 @@ class CityRLEnv:
         from scx.core.config import TrafficConfig
 
         # tight agent cap: traffic_ai_update compacts its control laws to
-        # [cap+8] agent rows instead of every capacity lane (the full-lane
-        # AI stage was 178 ms/step at 512 capacity x 1024 envs)
+        # [cap+8] agent rows instead of every capacity lane
         cfg = EngineConfig(
             traffic=TrafficConfig(
                 max_vehicles_total=max(24, n_traffic + 4),
@@ -490,10 +485,10 @@ class CityRLEnv:
         """RGB-D observations for the whole batch: [N,H,W,4], or
         [N,K,H,W,4] with n_agents=K>1 (one chase camera per agent).
 
-        Binning happens OUTSIDE the per-env vmap: its rank-recovery scatter
-        lowers ~50x slower as a batched scatter than as one folded 2D
-        scatter. raster_gbuffer_batched dispatches cluster vs triangle
-        binning on raster.use_clusters (cluster kernel for big GLB scenes).
+        Binning happens OUTSIDE the per-env vmap: its rank recovery is
+        written for the whole fleet at once (bin_triangles_batched).
+        raster_gbuffer_batched dispatches cluster vs triangle binning on
+        raster.use_clusters (cluster kernel for big GLB scenes).
 
         Multi-agent folds the K cameras into the batched raster's env axis
         (setup is [N,K,T,...] -> [N*K,T,...]): the binner/kernel are
@@ -757,8 +752,8 @@ class CityRLEnv:
         See examples/train_reinforce.py for the full training loop.
 
         One call is ONE device launch: keep `length * n_envs` under
-        MAX_ENVSTEPS_PER_LAUNCH (the ~60 s execution watchdog, CLAUDE.md
-        quirk 9) and loop on the host for longer training rollouts —
+        MAX_ENVSTEPS_PER_LAUNCH (the launch-length bound) and loop on the
+        host for longer training rollouts —
         the pure-fn shape makes that loop a natural optimizer step.
         """
 
@@ -810,8 +805,8 @@ class CityRLEnv:
 
         Same launch-budget rule as make_policy_rollout: one call is ONE
         device launch — keep `length * n_envs` under
-        MAX_ENVSTEPS_PER_LAUNCH (the ~60 s execution watchdog, CLAUDE.md
-        quirk 9) and loop on the host for longer collection horizons.
+        MAX_ENVSTEPS_PER_LAUNCH (the launch-length bound) and loop on the
+        host for longer collection horizons.
 
         thread_baked=True returns fn(batch, cache, params, key, baked)
         instead, taking the static-bake columns as an explicit
@@ -852,14 +847,11 @@ class CityRLEnv:
             batch, cache, params, key, baked
         )
 
-    # pre-measurement launch budget (env-steps): a single XLA execution
-    # running for minutes trips device/transport watchdogs (a 4096-env x
-    # 10-step launch ≈ 70 s reproducibly killed the TPU worker; the same
-    # program at 2048 envs ≈ 34 s runs fine). The AdaptiveChunker starts
-    # from this constant and then sizes launches from MEASURED durations,
-    # so machine variance (a 4x slower driver box) cannot trip the
-    # watchdog. aux stays on device between chunks so the host link only
-    # carries the tiny [chunk, N] means per chunk.
+    # pre-measurement launch budget (env-steps): the AdaptiveChunker
+    # starts from this constant and then sizes launches from MEASURED
+    # durations, bounding how long one launch runs. aux stays on device
+    # between chunks so the host link only carries the tiny [chunk, N]
+    # means per chunk.
     MAX_ENVSTEPS_PER_LAUNCH = 16384
 
     def rollout(self, actions, length: int = 10, chunk: int | None = None):
@@ -867,9 +859,8 @@ class CityRLEnv:
         render) scanned inside a jit, observations consumed on device.
 
         This is the deployment shape when the policy lives on the same
-        chip (obs never cross the host link); `step()` pays a host
-        round-trip per call, which dominates through remote/tunneled
-        device transports. Long rollouts are split into device launches
+        device (obs never cross the host link); `step()` pays a host
+        round-trip per call. Long rollouts are split into device launches
         sized by a measured-duration controller (scx.core.launch) toward
         a ~20 s/launch target; pass `chunk` to force a fixed size.
         Returns (obs_means [L,N], rewards [L,N]).
@@ -934,10 +925,9 @@ class CityRLEnv:
         This is the scale-out deployment shape (SURVEY §2 parallelism
         items 6-7): per-env computation is untouched, so results are
         bitwise equal to the unsharded `rollout` on the same envs; only
-        placement and the psum'd stats involve the mesh. Collectives ride
-        ICI via jax.lax.psum. The ~60s launch watchdog bound applies per
-        LAUNCH, so keep `length * n_envs/dp` under MAX_ENVSTEPS_PER_LAUNCH
-        and loop on the host for longer rollouts (see `rollout`).
+        placement and the psum'd stats involve the mesh (jax.lax.psum).
+        Keep `length * n_envs/dp` under MAX_ENVSTEPS_PER_LAUNCH and loop
+        on the host for longer rollouts (see `rollout`).
         Returns ((obs_means [L,N], rewards [L,N]), stats dict of global
         scalars).
         """

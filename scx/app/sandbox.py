@@ -7,7 +7,7 @@ FixedUpdate[AI -> vehicle -> physics -> sync] -> RenderPrep[camera ->
 cull -> draws] -> Render), same budgets, same fixed-step rules
 (60 Hz, <=4 substeps).
 
-Split of responsibilities (the TPU shape of the engine):
+Split of responsibilities (host vs device):
   * HOST: sector streaming, traffic spawning, asset residency, telemetry —
     everything with file IO or irregular allocation.
   * DEVICE (one jitted tick): traffic LOD + AI, vehicle forces, physics,
@@ -25,7 +25,7 @@ import time
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from scx.core import struct
 
 from scx.core import math3d as m3
 from scx.core.config import EngineConfig
@@ -162,7 +162,7 @@ def make_sim_tick(
 
         counts = dict(tier_counts(state))
         counts.update(acc)
-        # state-health monitor — the TPU-shape analogue of the reference's
+        # state-health monitor — this engine's analogue of the reference's
         # visual/physics desync detector (sc_traffic_ai.cpp:573-583): with
         # one authoritative pose there is no desync to detect, but the
         # failure it CAUGHT (solver blow-ups) shows up as non-finite state
@@ -233,13 +233,13 @@ class Sandbox:
         # bake streamed static props to world-space triangle columns
         # (scx.render.staticbake), rebaked only on streaming activity;
         # per-frame geometry setup then covers just the dynamic handful.
-        # Opt-in until measured on chip.
+        # Opt-in until measured on the card.
         static_bake: bool = False,
     ):
         self.cfg = cfg or EngineConfig()
         self.raster = raster or RasterParams(
             width=640, height=352, max_tris=32768, max_tris_per_tile=256,
-            # compiled Pallas needs a TPU; CPU sessions get interpret mode
+            # compiled kernels need the GPU; CPU sessions get interpret mode
             interpret=jax.default_backend() == "cpu",
         )
         self.capacity = capacity

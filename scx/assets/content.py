@@ -5,7 +5,7 @@ This is the runtime half of the reference's handle-resolution caches
 (sc_world_partition.cpp:746-797: registry mesh/material asset ids ->
 renderer handles, loading GLBs through the importer on first use) — the
 piece that lets AUTHORED sector files reference real art instead of the
-procedural cube. TPU-shape: all meshes bake into ONE device pool at world
+procedural cube. Device shape: all meshes bake into ONE device pool at world
 load (the pool array is a compile-time constant of the render kernels;
 per-frame "loading" would re-jit), textures stream through the
 AssetManager's budgeted residency pump exactly like procedural ones.

@@ -132,7 +132,7 @@ def mip_layout(size: int) -> tuple[list[int], list[int]]:
     The reference has no mips (sc_assets.cpp uploads level 0 only); a
     software rasterizer needs them or minified texture sampling aliases
     badly AND thrashes gathers across the whole base level.  A flat packed
-    chain keeps the per-pixel fetch a single [slot, index] gather on TPU
+    chain keeps the per-pixel fetch a single [slot, index] gather
     regardless of the selected level.
     """
     assert size & (size - 1) == 0, "mip chains need power-of-two slots"
@@ -169,10 +169,10 @@ def build_mip_quads(img: np.ndarray) -> np.ndarray:
     (v,u) holds the clamped 2x2 bilinear footprint
     [t(v,u), t(v,u+1), t(v+1,u), t(v+1,u+1)].
 
-    TPU gathers move one ROW per index (~190M rows/s measured at 720p), so
-    4-tap bilinear costs 4 gathers = ~20 ms/frame.  Storing each texel's
-    footprint redundantly (4x memory on small pool slots) folds exact
-    bilinear into ONE gather."""
+    Each gathered index costs one memory transaction, so 4-tap bilinear
+    costs 4 gathers per pixel.  Storing each texel's footprint
+    redundantly (4x memory on small pool slots) folds exact bilinear into
+    ONE gather of a 12-wide row."""
     s = img.shape[0]
     offsets, sizes = mip_layout(s)
     quads = np.zeros((offsets[-1], 12), np.float32)

@@ -132,7 +132,7 @@ class RenderConfig:
 
     width: int = 1280
     height: int = 720
-    tile_h: int = 64  # 64x128 tiles measured fastest (bench_raster_sweep)
+    tile_h: int = 64  # binning tile (RasterParams.tile_h/tile_w)
     tile_w: int = 128
     max_draws: int = 4096
     max_tris_per_tile: int = 256

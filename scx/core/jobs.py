@@ -2,7 +2,7 @@
 
 The reference runs a lock-free MPMC work-stealing pool with Dispatch
 (parallel-for + fence), DispatchAsync (fire-and-forget) and help-while-wait
-(sc_jobs.h:70-183, sc_jobs.cpp).  On the TPU build, frame-parallel compute
+(sc_jobs.h:70-183, sc_jobs.cpp).  Here frame-parallel compute
 belongs to XLA; what remains for host threads is IO-bound work — sector
 loads, asset decode, checkpoint writes.  This wrapper gives those the same
 API surface (Dispatch/DispatchAsync/fences, per-frame telemetry) over

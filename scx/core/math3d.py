@@ -1,4 +1,4 @@
-"""3D math for the TPU engine: vectors, quaternions, 4x4 matrices.
+"""3D math for the engine: vectors, quaternions, 4x4 matrices.
 
 Conventions match the reference engine's observable behaviour
 (reference: src/core/src/sc_math.cpp):
@@ -23,8 +23,9 @@ import jax.numpy as jnp
 
 EPSILON = 1e-6
 
-# TPU matmul defaults to bfloat16 passes; transform math needs true f32.
-# 4x4 matrices never touch the MXU meaningfully, so HIGHEST costs nothing.
+# Default-precision f32 products may run in reduced precision (TF32 on
+# the GPU's tensor cores); transform math and the one-hot gathers need
+# true f32. Every product in the engine states this precision.
 PRECISION = jax.lax.Precision.HIGHEST
 
 

@@ -128,7 +128,7 @@ def reset() -> None:
 
 def device_memory_stats(device=None) -> dict:
     """The accelerator's own HBM counters, when the backend exposes them
-    (bytes_in_use / peak_bytes_in_use / bytes_limit on TPU)."""
+    (bytes_in_use / peak_bytes_in_use / bytes_limit)."""
     import jax
 
     try:

@@ -1,13 +1,13 @@
 """ctypes bindings for the native runtime library (native/sc_native.cpp).
 
 The reference's data plane (sector codec, importers, streaming workers) is
-C++; this module loads the equivalent TPU-build library and exposes it to the
-host runtime.  Everything has a pure-Python fallback (scx.world.format /
+C++; this module loads the equivalent library of this engine and exposes it
+to the host runtime.  Everything has a pure-Python fallback (scx.world.format /
 scx.world.procgen) — the native path is an acceleration, not a requirement,
 and both are bit-compatible (tested against each other).
 
-Build: `make -C native` (done automatically on first import when a compiler
-is available).
+Build: `make -C native` (done automatically on first use when a compiler
+is available; the library is not tracked in git).
 """
 
 from __future__ import annotations

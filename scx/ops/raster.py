@@ -1,155 +1,190 @@
-"""Pallas TPU tiled software rasterizer — the engine's Vulkan replacement.
+"""Tiled software rasterizer — the engine's Vulkan replacement.
 
-Visibility + attribute interpolation for one framebuffer tile per grid
-program.  The pipeline (scx.render.pipeline) pre-bins triangle setup into a
-padded [n_tiles, K, F] array ordered by tile, so each program STREAMS its
-block sequentially — zero random access inside the kernel; Pallas's grid
-pipeline overlaps the HBM->VMEM copies of tile t+1 with the compute of t.
+Pallas kernels through Triton: one program per screen sub-tile of
+(sub_h, sub_w) pixels, sized to registers. The pipeline bins triangles
+into screen tiles of (tile_h, tile_w) pixels; every program of a bin tile
+walks that tile's list. Two list forms share one program body:
 
-Per triangle: three edge functions evaluated over the tile's (th x tw) pixel
-lattice (VPU), perspective-correct barycentric interpolation via
-premultiplied 1/w attributes, z-buffer test in RH zero-to-one depth (smaller
-= closer, matching the reference's perspective, sc_math.cpp:209-232).
+  * triangle-binned (this module): setup rows pre-gathered per tile into a
+    padded [n_tiles, K, F] array, walked as one run of `count` rows;
+  * cluster-binned (scx.ops.raster_clusters): per-tile lists of 32-triangle
+    clusters, walked near-to-far with an exact hierarchical-z exit.
 
-Outputs a planar G-buffer: depth [H,W] and attrs [6,H,W] (rgb, uv, material
-id); texturing happens afterwards in XLA where gathers are cheap
-(deferred shading) — per-lane gathers inside a TPU kernel are not.
+Per triangle: three edge/depth planes evaluated over the sub-tile's pixel
+lattice, z-buffer test in RH zero-to-one depth (smaller = closer, matching
+the reference's perspective, sc_math.cpp:209-232). Depth and the winning
+setup row are loop carries held in registers. After the walk, each covered
+pixel gathers its winner's attribute planes from the setup buffer (it sits
+in L2) and interpolates them perspective-correctly — attribute math runs
+once per pixel, not once per triangle.
 
-Invalid / padded triangle slots are skipped with pl.when, so sparsely
-occupied tiles cost only the scalar loop overhead.
+Outputs a planar G-buffer: depth [H,W] and rgb/uv/material planes;
+texturing happens afterwards in XLA (deferred shading).
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from scx.render import pipeline as pipe
 
 N_ATTR = 6  # r, g, b, u, v, mat
 
 
-CHUNK = 8  # triangles vectorized per kernel iteration (scalar loop
-           # overhead is ~100+ cycles/iteration, CLAUDE.md quirk 6)
+def sub_tile(params) -> tuple[int, int]:
+    """Program sub-tile: the largest power-of-two size <= (sub_h, sub_w)
+    that divides the bin tile (Triton blocks are powers of two)."""
+
+    def fit(want, tile):
+        s = 1
+        while s * 2 <= want and tile % (s * 2) == 0:
+            s *= 2
+        return s
+
+    return fit(params.sub_h, params.tile_h), fit(params.sub_w, params.tile_w)
 
 
-def _raster_tile_kernel(count_ref, binned_ref, depth_ref, attr_ref, *, params):
-    ty = pl.program_id(0)
-    tx = pl.program_id(1)
-    n = count_ref[ty * pl.num_programs(1) + tx]
-    _raster_tile_body(
-        n,
-        lambda c0: binned_ref[0, pl.dslice(c0 * CHUNK, CHUNK), :],
-        depth_ref, attr_ref, ty, tx, params,
+def raster_program(tri_ref, n_items, item_rows, item_zmin, y0, x0, sub):
+    """Shared per-program body. Walks items k < n_items; item k covers
+    setup rows [item_rows(k)) = (start, stop) of `tri_ref` [rows, F].
+    `item_zmin(k)` is the item's min depth (None: never exit early): with
+    items ordered near-to-far, the first item whose zmin >= the sub-tile's
+    max depth cannot win a pixel, and neither can any later one, so the
+    walk ends there (exact). Returns (depth, attribute planes)."""
+    py = jax.lax.broadcasted_iota(jnp.int32, sub, 0).astype(jnp.float32) + (
+        y0.astype(jnp.float32) + 0.5
+    )
+    px = jax.lax.broadcasted_iota(jnp.int32, sub, 1).astype(jnp.float32) + (
+        x0.astype(jnp.float32) + 0.5
     )
 
+    def plane(row, base):
+        return (
+            tri_ref[row, base] * px
+            + tri_ref[row, base + 1] * py
+            + tri_ref[row, base + 2]
+        )
 
-def _raster_tile_body(n, load_chunk, depth_ref, attr_ref, ty, tx, params):
-    """Two-pass chunk-vectorized tile raster (same scheme as the cluster
-    kernel): pass A evaluates CHUNK triangles at once over the (th, tw)
-    lattice and min-reduces depth while recording the winner code; pass B
-    interpolates attributes only for chunks that won pixels, resolved
-    through a one-hot on the winner code.  Exact: depth buffering is a min
-    reduction, strict '<' keeps the first (lowest-index) triangle on ties
-    in both passes — identical output to the per-triangle loop it
-    replaces, ~CHUNKx fewer scalar iterations."""
-    th, tw = params.tile_h, params.tile_w
+    def tri_step(row, carry):
+        depth, win = carry
+        l0 = plane(row, pipe.F_L0)
+        l1 = plane(row, pipe.F_L1)
+        z = plane(row, pipe.F_Z)
+        # strict '<': on equal depth the earlier triangle keeps the pixel
+        hit = (l0 >= 0.0) & (l1 >= 0.0) & (l0 + l1 <= 1.0) & (z >= 0.0)
+        hit &= z < depth
+        return jnp.where(hit, z, depth), jnp.where(hit, row, win)
 
-    depth_ref[...] = jnp.ones(depth_ref.shape, jnp.float32)
-    attr_ref[...] = jnp.zeros(attr_ref.shape, jnp.float32)
+    def cond(carry):
+        k, stop, _, _ = carry
+        return (k < n_items) & jnp.logical_not(stop)
 
-    py = (
-        jax.lax.broadcasted_iota(jnp.int32, (th, tw), 0).astype(jnp.float32)
-        + ty.astype(jnp.float32) * th
-        + 0.5
-    )[None]
-    px = (
-        jax.lax.broadcasted_iota(jnp.int32, (th, tw), 1).astype(jnp.float32)
-        + tx.astype(jnp.float32) * tw
-        + 0.5
-    )[None]
-    lane = jax.lax.broadcasted_iota(jnp.int32, (CHUNK, 1, 1), 0)
-    n_chunks = (n + CHUNK - 1) // CHUNK
+    def body(carry):
+        k, _, depth, win = carry
+        start, stop_row = item_rows(k)
+        zmin = -jnp.inf if item_zmin is None else item_zmin(k)
+        stop = zmin >= jnp.max(depth)
+        stop_row = jnp.where(stop, start, stop_row)
+        depth, win = jax.lax.fori_loop(start, stop_row, tri_step, (depth, win))
+        return k + 1, stop, depth, win
 
-    def run_scoped_body(winner_ref):
-        winner_ref[:] = jnp.full((th, tw), -1, jnp.int32)
+    depth0 = jnp.ones(sub, jnp.float32)
+    win0 = jnp.full(sub, -1, jnp.int32)
+    _, _, depth, win = jax.lax.while_loop(
+        cond, body, (jnp.int32(0), jnp.bool_(False), depth0, win0)
+    )
 
-        def pass_a(c0, _):
-            blk = load_chunk(c0)                             # (CHUNK, F)
-            g = lambda f: blk[:, f : f + 1][:, :, None]      # (CHUNK,1,1)
+    # winner attributes: one gather per plane coefficient per pixel
+    covered = win >= 0
+    row = jnp.maximum(win, 0)
+    inv_iw = 1.0 / jnp.maximum(plane(row, pipe.F_IW), 1e-12)
+    attrs = [
+        plane(row, pipe.F_COL + 0) * inv_iw,
+        plane(row, pipe.F_COL + 3) * inv_iw,
+        plane(row, pipe.F_COL + 6) * inv_iw,
+        plane(row, pipe.F_UV + 0) * inv_iw,
+        plane(row, pipe.F_UV + 3) * inv_iw,
+        tri_ref[row, pipe.F_MAT],
+    ]
+    return depth, [jnp.where(covered, a, 0.0) for a in attrs]
 
-            def ev(base):
-                return g(base) * px + g(base + 1) * py + g(base + 2)
 
-            l0 = ev(pipe.F_L0)
-            l1 = ev(pipe.F_L1)
-            cov = (l0 >= 0.0) & (l1 >= 0.0) & (l0 + l1 <= 1.0)
-            cov &= (c0 * CHUNK + lane) < n                   # tail chunk
-            z = ev(pipe.F_Z)
-            zm = jnp.where(cov & (z >= 0.0), z, 2.0)
-            best_z = jnp.min(zm, axis=0)
-            best_j = jnp.argmin(zm, axis=0).astype(jnp.int32)
-            depth = depth_ref[...].reshape(th, tw)
-            m = best_z < depth
+def raster_call(program, operands, n_envs, params):
+    """pallas_call over (env, sub-tile row, sub-tile column) programs.
 
-            @pl.when(jnp.any(m))
-            def _():
-                depth_ref[...] = jnp.where(m, best_z, depth).reshape(
-                    depth_ref.shape
-                )
-                winner_ref[:] = jnp.where(
-                    m, c0 * CHUNK + best_j, winner_ref[:]
-                )
+    `program(env, ty, tx, y0, x0, sub, *refs)` returns (depth, attrs) for
+    the sub-tile at pixel (y0, x0) of env's frame, inside bin tile
+    (ty, tx). Operands are whole arrays in device memory; each program
+    loads its own list entries. Outputs are one [E*h_pad, w_pad] plane per
+    G-buffer channel. Pallas folds the env axis into CUDA's x grid
+    dimension, so fleet sizes past the 65,535 y/z limit launch as is."""
+    sh, sw = sub = sub_tile(params)
+    h_pad = params.tiles_y * params.tile_h
+    w_pad = params.tiles_x * params.tile_w
+    nsy, nsx = h_pad // sh, w_pad // sw
+    n_in = len(operands)
 
-        jax.lax.fori_loop(0, n_chunks, pass_a, None)
+    def kernel(*refs):
+        env, sy, sx = pl.program_id(0), pl.program_id(1), pl.program_id(2)
+        y0, x0 = sy * sh, sx * sw
+        depth, attrs = program(
+            env, y0 // params.tile_h, x0 // params.tile_w, y0, x0, sub,
+            *refs[:n_in],
+        )
+        outs = refs[n_in:]
+        outs[0][...] = depth
+        for o, a in zip(outs[1:], attrs):
+            o[...] = a
 
-        codes = jax.lax.broadcasted_iota(jnp.int32, (CHUNK, 1, 1), 0)
+    plane_shape = jax.ShapeDtypeStruct((n_envs * h_pad, w_pad), jnp.float32)
+    out_spec = pl.BlockSpec((sh, sw), lambda e, y, x: (e * nsy + y, x))
+    planes = pl.pallas_call(
+        kernel,
+        grid=(n_envs, nsy, nsx),
+        in_specs=[pl.BlockSpec(memory_space=pl.ANY)] * n_in,
+        out_specs=[out_spec] * (1 + N_ATTR),
+        out_shape=[plane_shape] * (1 + N_ATTR),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=params.num_warps, num_stages=1
+        ),
+        interpret=params.interpret,
+        name="raster",
+    )(*operands)
+    h, w = params.height, params.width
+    depth, *attrs = (p.reshape(n_envs, h_pad, w_pad)[:, :h, :w] for p in planes)
+    return {
+        "depth": depth,
+        "color": jnp.stack(attrs[0:3], axis=-1),
+        "uv": jnp.stack(attrs[3:5], axis=-1),
+        "mat": attrs[5].astype(jnp.int32),
+        "covered": depth < 1.0,
+    }
 
-        def pass_b(c0, _):
-            w = winner_ref[:]
-            lo = c0 * CHUNK
-            in_chunk = (w >= lo) & (w < lo + CHUNK)
 
-            @pl.when(jnp.any(in_chunk))
-            def _():
-                blk = load_chunk(c0)
-                g = lambda f: blk[:, f : f + 1][:, :, None]
+def rasterize_tiles_batched(binned, counts, params) -> dict:
+    """Triangle-binned raster: binned [E, n_tiles, K, F], counts
+    [E, n_tiles] -> G-buffer with a leading env dim. Each program walks
+    its bin tile's `count` pre-gathered setup rows in index order."""
+    e, n_tiles, k, _ = binned.shape
+    counts = jnp.minimum(counts, k).astype(jnp.int32)
 
-                def ev(base):
-                    return g(base) * px + g(base + 1) * py + g(base + 2)
+    def program(env, ty, tx, y0, x0, sub, cnt_ref, tri_ref):
+        tile = env * n_tiles + ty * params.tiles_x + tx
+        start = tile * k
+        return raster_program(
+            tri_ref, 1, lambda _: (start, start + cnt_ref[tile]), None,
+            y0, x0, sub,
+        )
 
-                onehot = ((w[None] - lo) == codes).astype(jnp.float32)
-
-                def resolve(base):
-                    return jnp.sum(ev(base) * onehot, axis=0)
-
-                inv_iw = 1.0 / jnp.maximum(resolve(pipe.F_IW), 1e-12)
-                matv = jnp.sum(
-                    jnp.broadcast_to(g(pipe.F_MAT), onehot.shape) * onehot,
-                    axis=0,
-                )
-                new = jnp.stack(
-                    [
-                        resolve(pipe.F_COL + 0) * inv_iw,
-                        resolve(pipe.F_COL + 3) * inv_iw,
-                        resolve(pipe.F_COL + 6) * inv_iw,
-                        resolve(pipe.F_UV + 0) * inv_iw,
-                        resolve(pipe.F_UV + 3) * inv_iw,
-                        matv,
-                    ]
-                )
-                attrs = attr_ref[...].reshape(N_ATTR, th, tw)
-                attr_ref[...] = jnp.where(in_chunk[None], new, attrs).reshape(
-                    attr_ref.shape
-                )
-
-        jax.lax.fori_loop(0, n_chunks, pass_b, None)
-
-    pl.run_scoped(run_scoped_body, pltpu.VMEM((th, tw), jnp.int32))
+    return raster_call(
+        program,
+        (counts.reshape(e * n_tiles), binned.reshape(e * n_tiles * k, -1)),
+        e, params,
+    )
 
 
 def rasterize_tiles(binned, params, counts=None) -> dict:
@@ -158,60 +193,14 @@ def rasterize_tiles(binned, params, counts=None) -> dict:
     counts: [n_tiles] i32 per-tile occupancy (dynamic loop bound); defaults
     to the full K when not provided.
     """
-    assert params.max_tris_per_tile % CHUNK == 0, "tile capacity must be a CHUNK multiple"
-    nty, ntx = params.tiles_y, params.tiles_x
-    th, tw = params.tile_h, params.tile_w
-    h_pad, w_pad = nty * th, ntx * tw
     if counts is None:
-        counts = jnp.full((params.n_tiles,), params.max_tris_per_tile, jnp.int32)
-
-    kernel = functools.partial(_raster_tile_kernel, params=params)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,  # per-tile occupancy counts
-        grid=(nty, ntx),
-        in_specs=[
-            pl.BlockSpec(
-                (1, params.max_tris_per_tile, pipe.N_FIELDS),
-                lambda ty, tx, counts: (ty * ntx + tx, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec((th, tw), lambda ty, tx, counts: (ty, tx), memory_space=pltpu.VMEM),
-            pl.BlockSpec(
-                (N_ATTR, th, tw),
-                lambda ty, tx, counts: (0, ty, tx),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-    )
-    depth, attrs = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((h_pad, w_pad), jnp.float32),
-            jax.ShapeDtypeStruct((N_ATTR, h_pad, w_pad), jnp.float32),
-        ],
-        interpret=params.interpret,
-    )(
-        jnp.minimum(counts, params.max_tris_per_tile).astype(jnp.int32),
-        binned,
-    )
-
-    h, w = params.height, params.width
-    depth = depth[:h, :w]
-    attrs = attrs[:, :h, :w]
-    return {
-        "depth": depth,
-        "color": jnp.moveaxis(attrs[0:3], 0, -1),
-        "uv": jnp.moveaxis(attrs[3:5], 0, -1),
-        "mat": attrs[5].astype(jnp.int32),
-        "covered": depth < 1.0,
-    }
+        counts = jnp.full((binned.shape[0],), binned.shape[1], jnp.int32)
+    g = rasterize_tiles_batched(binned[None], counts[None], params)
+    return jax.tree.map(lambda x: x[0], g)
 
 
 # ---------------------------------------------------------------------------
-# Pure-XLA reference rasterizer (golden tests, CPU fallback, tiny images)
+# Pure-XLA reference rasterizer (golden tests, tiny images)
 # ---------------------------------------------------------------------------
 
 def rasterize_reference(setup, params) -> dict:
@@ -256,80 +245,5 @@ def rasterize_reference(setup, params) -> dict:
         "color": jnp.moveaxis(attrs[0:3], 0, -1),
         "uv": jnp.moveaxis(attrs[3:5], 0, -1),
         "mat": attrs[5].astype(jnp.int32),
-        "covered": depth < 1.0,
-    }
-
-
-def rasterize_tiles_batched(binned, counts, params) -> dict:
-    """Batched-env variant: binned [E, n_tiles, K, F], counts [E, n_tiles]
-    -> G-buffer with leading env dim.  Grid = (envs, tiles_y, tiles_x); no
-    DMA needed at RL sizes (K is small), blocks stream like the single-env
-    path.  Used by the vectorized RL env (128x128 RGB-D observations)."""
-    e = binned.shape[0]
-    assert params.max_tris_per_tile % CHUNK == 0, "tile capacity must be a CHUNK multiple"
-    nty, ntx = params.tiles_y, params.tiles_x
-    th, tw = params.tile_h, params.tile_w
-    h_pad, w_pad = nty * th, ntx * tw
-
-    n_tiles = nty * ntx
-
-    def kernel(count_ref, binned_ref, depth_ref, attr_ref):
-        env = pl.program_id(0)
-        ty = pl.program_id(1)
-        tx = pl.program_id(2)
-        _raster_tile_body(
-            # counts arrive FLAT [E*n_tiles]: a 2D [E, n_tiles] SMEM operand
-            # pads its last dim to 128 lanes (4096 envs x 8 tiles i32 ->
-            # 2 MiB > the 1 MiB SMEM budget, seen as a real AOT compile
-            # failure); the 1D layout stays at E*n_tiles*4 bytes.
-            count_ref[env * n_tiles + ty * ntx + tx],
-            lambda c0: binned_ref[0, 0, pl.dslice(c0 * CHUNK, CHUNK), :],
-            depth_ref, attr_ref, ty, tx, params,
-        )
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(e, nty, ntx),
-        in_specs=[
-            pl.BlockSpec(
-                (1, 1, params.max_tris_per_tile, pipe.N_FIELDS),
-                lambda env, ty, tx, c: (env, ty * ntx + tx, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (1, th, tw), lambda env, ty, tx, c: (env, ty, tx),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (1, N_ATTR, th, tw),
-                lambda env, ty, tx, c: (env, 0, ty, tx),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-    )
-    depth, attrs = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((e, h_pad, w_pad), jnp.float32),
-            jax.ShapeDtypeStruct((e, N_ATTR, h_pad, w_pad), jnp.float32),
-        ],
-        interpret=params.interpret,
-    )(
-        jnp.minimum(counts, params.max_tris_per_tile)
-        .astype(jnp.int32)
-        .reshape(e * n_tiles),
-        binned,
-    )
-    h, w = params.height, params.width
-    depth = depth[:, :h, :w]
-    attrs = attrs[:, :, :h, :w]
-    return {
-        "depth": depth,
-        "color": jnp.moveaxis(attrs[:, 0:3], 1, -1),
-        "uv": jnp.moveaxis(attrs[:, 3:5], 1, -1),
-        "mat": attrs[:, 5].astype(jnp.int32),
         "covered": depth < 1.0,
     }

@@ -1,52 +1,28 @@
-"""Cluster-binned Pallas rasterizer — the speed-of-light path.
+"""Cluster-binned rasterizer — the path for large frames.
 
-Why clusters: TPU hates per-element compaction (scatter ~200M elem/s,
-searchsorted gather-bound), so per-TRIANGLE tile lists are unaffordable to
-build at 100k tris.  Grouping 64 consecutive triangles of the expanded draw
-buffer into a cluster (triangles of a draw are spatially coherent — the
-meshlet idea) shrinks the binning domain by 64x: a dense [tiles, clusters]
-overlap matrix plus one top_k yields per-tile cluster lists in ~2ms.
+Per-triangle tile lists need a compaction over every (tile, triangle)
+pair, which at 100k triangles costs more than the raster itself.
+Grouping 32 consecutive triangles of the expanded draw buffer into a
+cluster (triangles of a draw are spatially coherent — the meshlet idea)
+shrinks the binning domain 32x: a dense [tiles, clusters] overlap matrix
+plus one top_k yields per-tile cluster lists, ordered near-to-far.
 
-The kernel then pulls each listed cluster's 64-triangle setup block from HBM
-with double-buffered async DMA (8 KB blocks, addresses from scalar-prefetch
-— the PrefetchScalarGridSpec pattern) and rasterizes in two passes:
-
-  pass A (depth): edge functions + z only (~half the math), records the
-      per-pixel winning triangle code;
-  pass B (attributes): full perspective-correct interpolation ONLY for
-      triangles that won at least one pixel (typically 10-30 per tile vs
-      hundreds touched).
-
-Per-tile work is bounded by its real cluster count (dynamic loop bound).
+The kernel (scx.ops.raster's shared program body) walks each sub-tile's
+cluster list: a listed cluster's 32 setup rows are read straight from the
+[T, F] setup buffer, and the walk stops at the first cluster whose min
+depth cannot beat the sub-tile's farthest pixel. Per-program work is
+bounded by the tile's real cluster count.
 """
 
 from __future__ import annotations
 
-import functools
-import os
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
+from scx.ops import raster
 from scx.render import pipeline as pipe
 
-N_ATTR = 6
-CLUSTER = 32  # triangles per cluster (tight AABBs beat DMA granularity)
-
-# Packed setup blocks: N_FIELDS is exactly 32, so 4 triangles fit one
-# 128-lane row — the padded [CLUSTER, 128] block (fields 32..127 dead)
-# carries 4x DMA traffic and 4x VMEM scratch for nothing. Packed layout:
-# [CLUSTER//4, 128], tri t at row t//4, lanes 32*(t%4)..32*(t%4)+32.
-# The kernels detect the layout from the scratch shape; this flag picks
-# it at dispatch. OPT-IN (SCX_RASTER_PACKED=1): the packed formulation
-# currently fails Mosaic lowering on real TPUs (tpu.reshape of
-# vector<8x4xf32> -> 8x4x1x1 is rejected) even though interpret mode
-# passes equivalence — keep it off until the kernel-side formulation
-# lowers cleanly and the A/B wins on chip.
-_PACKED = os.environ.get("SCX_RASTER_PACKED", "0") == "1"
-_PACK = 4  # tris per 128-lane row (128 // N_FIELDS)
+CLUSTER = 32  # triangles per cluster
 
 
 def cluster_bounds(aabb, valid, max_tris: int, setup=None):
@@ -136,469 +112,54 @@ def bin_clusters(cl_aabb, cl_valid, params, max_clusters_per_tile: int,
     return ids.astype(jnp.int32), counts
 
 
-def _tile_body(
-    cnt, id_at, zmin_at, src_at, depth_ref, attr_ref, buf, sems, ty, tx, params
+def rasterize_clusters_batched(
+    setup, cl_ids, cl_counts, params, max_clusters_per_tile: int,
+    cl_zmin=None,
 ):
-    """Shared per-tile raster body: `id_at(kc)` -> cluster id for DMA,
-    `zmin_at(kc)` -> that slot's cluster min depth (hierarchical-z skip),
-    `src_at(cid)` -> the HBM block to DMA. Single-scene and env-batched
-    kernels differ only in these accessors and the grid."""
-    th, tw = params.tile_h, params.tile_w
-    packed = buf.shape[1] == CLUSTER // _PACK  # setup-block layout (above)
+    """Env-batched cluster raster: setup [E,T,F], cl_ids [E,n_tiles,KC]
+    (original cluster ids), cl_counts [E,n_tiles], cl_zmin [E,C] -> G-buffer
+    dict with a leading env dim.
 
-    depth_ref[:] = jnp.ones((th, tw), jnp.float32)
-    attr_ref[:] = jnp.zeros((N_ATTR, th, tw), jnp.float32)
+    cl_zmin: per-cluster min depth for the hierarchical-z exit; pass it
+    only when each tile's list is ordered near-to-far (bin_clusters with
+    cl_zmin). None walks every listed cluster."""
+    e, t, _ = setup.shape
+    n_tiles = params.n_tiles
+    kc = max_clusters_per_tile
+    c = t // CLUSTER
+    counts = jnp.minimum(cl_counts, kc).astype(jnp.int32).reshape(e * n_tiles)
+    ids = cl_ids.astype(jnp.int32).reshape(e * n_tiles, kc)
 
-    py = (
-        jax.lax.broadcasted_iota(jnp.int32, (th, tw), 0).astype(jnp.float32)
-        + ty.astype(jnp.float32) * th + 0.5
-    )
-    px = (
-        jax.lax.broadcasted_iota(jnp.int32, (th, tw), 1).astype(jnp.float32)
-        + tx.astype(jnp.float32) * tw + 0.5
-    )
+    def program(env, ty, tx, y0, x0, sub, cnt_ref, ids_ref, *rest):
+        tile = env * n_tiles + ty * params.tiles_x + tx
+        *zmin_ref, tri_ref = rest
 
-    def dma(kc):
-        return pltpu.make_async_copy(src_at(id_at(kc)), buf.at[kc], sems.at[kc])
+        def rows(k):
+            start = env * t + ids_ref[tile, k] * CLUSTER
+            return start, start + CLUSTER
 
-    # pipelined DMA: 2 in flight; pass A starts kc+2 before using kc
-    def start_if(kc):
-        @pl.when(kc < cnt)
-        def _():
-            dma(kc).start()
-
-    start_if(0)
-    start_if(1)
-
-    def run_scoped_body(winner_ref):
-        winner_ref[:] = jnp.full((th, tw), -1, jnp.int32)
-
-        # ---- pass A: depth + winner code, with an EXACT early exit:
-        # bin_clusters orders each tile's list near-to-far by cluster zmin,
-        # so the first cluster with zmin >= the tile's max depth cannot win
-        # a pixel (z >= zmin >= max depth) — and neither can any later one
-        # (their zmins are larger still). Breaking there skips the whole
-        # occluded tail: its lattice math AND its DMAs (a fori_loop with a
-        # per-cluster skip still paid both the issue and the wait) ----
-        def pass_a_cond(carry):
-            kc, stop = carry
-            return jnp.logical_and(kc < cnt, jnp.logical_not(stop))
-
-        def pass_a(carry):
-            kc, _ = carry
-
-            @pl.when(kc + 2 < cnt)
-            def _():
-                dma(kc + 2).start()
-
-            dma(kc).wait()
-            tile_zmax = jnp.max(depth_ref[:])
-            stop = zmin_at(kc) >= tile_zmax
-
-            @pl.when(jnp.logical_not(stop))
-            def _():
-                _pass_a_cluster(kc)
-
-            return kc + 1, stop
-
-        # pass A processes CH triangles per iteration, fully vectorized over
-        # a (CH, th, tw) lattice, reduced by min-depth within the chunk —
-        # depth-buffering is a min-reduction so this is exact.  Amortizes
-        # the scalar loop/branch overhead that dominates per-tri loops.
-        # NOTE: evaluating the planes as a (96,3)x(3,th*tw) MXU matmul was
-        # tried and is both SLOWER (8.5 vs 8.0 ms: layout moves eat the FMA
-        # savings) and imprecise (f32 matmul defaults to bf16 passes, which
-        # perturbs edge-function coverage by ~1% of pixels).  VPU it is.
-        def _cluster_planes(kc):
-            """(g, ev) accessors for cluster kc's setup block.
-
-            Packed layout evaluates each of the 4 lane-slots separately with
-            the SAME (rows,1,1)-slice pattern the unpacked path uses (the
-            only shape manipulation Mosaic lowers cleanly here — the earlier
-            (rows,4,1,1) broadcast needed a vector reshape it rejects), then
-            concatenates along the major axis.  Triangle order inside the
-            cluster becomes slot-major (j = s*rows + row), a permutation
-            that is consistent between pass A's argmin codes and pass B's
-            one-hot, so the rasterized output is identical."""
-            blk = buf[kc]
-            if packed:
-                rows_p = CLUSTER // _PACK
-                pyc = py[None]
-                pxc = px[None]
-
-                def g_s(s, f):  # (rows, 1, 1); static lane index s*NF+f
-                    lo = s * pipe.N_FIELDS + f
-                    return blk[:, lo : lo + 1][:, :, None]
-
-                def ev(base):  # plane a*px + b*py + c, (CL,th,tw) slot-major
-                    return jnp.concatenate(
-                        [
-                            g_s(s, base) * pxc
-                            + g_s(s, base + 1) * pyc
-                            + g_s(s, base + 2)
-                            for s in range(_PACK)
-                        ],
-                        axis=0,
-                    )
-
-                def gfull(f):  # constant field broadcast to (CL,th,tw)
-                    return jnp.concatenate(
-                        [
-                            jnp.broadcast_to(g_s(s, f), (rows_p, th, tw))
-                            for s in range(_PACK)
-                        ],
-                        axis=0,
-                    )
-            else:
-                def g(f):  # (CL,1,1)
-                    return blk[:, f : f + 1][:, :, None]
-
-                pyc = py[None]
-                pxc = px[None]
-
-                def ev(base):
-                    return g(base) * pxc + g(base + 1) * pyc + g(base + 2)
-
-                def gfull(f):
-                    return jnp.broadcast_to(g(f), (CLUSTER, th, tw))
-            return ev, gfull
-
-        def _pass_a_cluster(kc):
-            ev, _ = _cluster_planes(kc)
-
-            l0 = ev(pipe.F_L0)
-            l1 = ev(pipe.F_L1)
-            cov = (l0 >= 0.0) & (l1 >= 0.0) & (l0 + l1 <= 1.0)
-            z = ev(pipe.F_Z)
-            zm = jnp.where(cov & (z >= 0.0), z, 2.0)         # (CL,th,tw)
-
-            # nearest tri of the cluster per pixel (tree reduction — a
-            # sequential fold serializes the VPU)
-            best_z = jnp.min(zm, axis=0)
-            best_j = jnp.argmin(zm, axis=0).astype(jnp.int32)
-
-            depth = depth_ref[:]
-            m = best_z < depth
-
-            @pl.when(jnp.any(m))
-            def _():
-                depth_ref[:] = jnp.where(m, best_z, depth)
-                winner_ref[:] = jnp.where(
-                    m, kc * CLUSTER + best_j, winner_ref[:]
-                )
-
-        kc_end, _ = jax.lax.while_loop(
-            pass_a_cond, pass_a, (jnp.int32(0), jnp.bool_(False))
+        zmin_at = None
+        if zmin_ref:
+            zmin_at = lambda k: zmin_ref[0][env * c + ids_ref[tile, k]]
+        return raster.raster_program(
+            tri_ref, cnt_ref[tile], rows, zmin_at, y0, x0, sub
         )
 
-        # drain DMAs still in flight past the exit point: buf/sems scratch
-        # is reused by the next grid step, and an unconsumed signal there
-        # would satisfy a DIFFERENT tile's wait with stale data
-        def drain(kc, _):
-            dma(kc).wait()
-            return _
-
-        jax.lax.fori_loop(kc_end, jnp.minimum(cnt, kc_end + 2), drain, None)
-
-        # ---- pass B: attributes, whole cluster vectorized ----
-        # each pixel's winner code selects exactly one triangle; evaluating
-        # all 32 attribute planes of a HIT cluster and mask-summing over the
-        # one-hot (winner == code_j) beats any scalar per-tri loop
-        codes = jax.lax.broadcasted_iota(jnp.int32, (CLUSTER, 1, 1), 0)
-
-        def pass_b(kc, _):
-            w = winner_ref[:]
-            lo = kc * CLUSTER
-            in_cluster = (w >= lo) & (w < lo + CLUSTER)
-
-            @pl.when(jnp.any(in_cluster))
-            def _():
-                ev, gfull = _cluster_planes(kc)
-                onehot = ((w[None] - lo) == codes).astype(jnp.float32)
-
-                def resolve(base):
-                    return jnp.sum(ev(base) * onehot, axis=0)  # (th,tw)
-
-                iw = jnp.maximum(resolve(pipe.F_IW), 1e-12)
-                inv_iw = 1.0 / iw
-                matv = jnp.sum(gfull(pipe.F_MAT) * onehot, axis=0)
-                new = jnp.stack(
-                    [
-                        resolve(pipe.F_COL + 0) * inv_iw,
-                        resolve(pipe.F_COL + 3) * inv_iw,
-                        resolve(pipe.F_COL + 6) * inv_iw,
-                        resolve(pipe.F_UV + 0) * inv_iw,
-                        resolve(pipe.F_UV + 3) * inv_iw,
-                        matv,
-                    ]
-                )
-                attr_ref[:] = jnp.where(in_cluster[None], new, attr_ref[:])
-
-        # winners only come from clusters pass A actually rasterized
-        jax.lax.fori_loop(0, kc_end, pass_b, None)
-
-    pl.run_scoped(run_scoped_body, pltpu.VMEM((th, tw), jnp.int32))
-
-
-def _kernel(
-    cl_ids_ref,      # scalar prefetch [n_tiles, KC]
-    cl_counts_ref,   # scalar prefetch [n_tiles]
-    cl_zmin_ref,     # scalar prefetch [C] f32: per-cluster min depth
-    setup_hbm,       # [C, CLUSTER, 128] in ANY/HBM
-    depth_ref,       # out tile block [th, tw]
-    attr_ref,        # out tile block [N_ATTR, th, tw]
-    buf,             # scratch [KC, CLUSTER, 128] VMEM
-    sems,            # DMA semaphores [KC]
-    *,
-    params,
-    kc_max,
-):
-    ty = pl.program_id(0)
-    tx = pl.program_id(1)
-    tile = ty * pl.num_programs(1) + tx
-    _tile_body(
-        cl_counts_ref[tile],
-        lambda kc: cl_ids_ref[tile, kc],
-        lambda kc: cl_zmin_ref[cl_ids_ref[tile, kc]],
-        lambda cid: setup_hbm.at[cid],
-        depth_ref, attr_ref, buf, sems, ty, tx, params,
-    )
-
-
-# quantization scale for the per-slot cluster zmin packed into the high
-# bits of the batched kernel's SMEM word (15 bits; floor-quantized so the
-# hierarchical-z skip stays conservative)
-_ZQ = 32767.0
-
-
-def _kernel_batched(
-    words_ref,       # scalar prefetch [E*n_tiles*KC] i32: cid | zq<<16
-    cl_counts_ref,   # scalar prefetch [E*n_tiles]
-    setup_hbm,       # [E, C, CLUSTER, 128] in ANY/HBM
-    depth_ref,       # out tile block [th, tw] (outputs laid out [E*h, w])
-    attr_ref,        # out tile block [N_ATTR, th, tw]
-    buf,
-    sems,
-    *,
-    params,
-    kc_max,
-    n_tiles,
-):
-    env = pl.program_id(0)
-    ty = pl.program_id(1)
-    tx = pl.program_id(2)
-    flat = (env * n_tiles + ty * pl.num_programs(2) + tx) * kc_max
-
-    def word(kc):
-        return words_ref[flat + kc]
-
-    _tile_body(
-        cl_counts_ref[env * n_tiles + ty * pl.num_programs(2) + tx],
-        lambda kc: word(kc) & 0xFFFF,
-        lambda kc: (word(kc) >> 16).astype(jnp.float32) * (1.0 / _ZQ),
-        lambda cid: setup_hbm.at[env, cid],
-        depth_ref, attr_ref, buf, sems, ty, tx, params,
+    zmin = ()
+    if cl_zmin is not None:
+        zmin = (cl_zmin.astype(jnp.float32).reshape(e * c),)
+    return raster.raster_call(
+        program, (counts, ids, *zmin, setup.reshape(e * t, -1)), e, params
     )
 
 
 def rasterize_clusters(
-    setup, cl_ids, cl_counts, params, max_clusters_per_tile: int, cl_zmin=None,
-    packed: bool | None = None,
+    setup, cl_ids, cl_counts, params, max_clusters_per_tile: int, cl_zmin=None
 ):
-    """setup [T, F] + per-tile cluster lists -> G-buffer dict.
-
-    cl_zmin [C]: per-cluster min depth for the hierarchical-z skip (defaults
-    to zeros = no skipping).  packed: setup-block layout (None = the
-    SCX_RASTER_PACKED env default)."""
-    if packed is None:
-        packed = _PACKED
-    nty, ntx = params.tiles_y, params.tiles_x
-    th, tw = params.tile_h, params.tile_w
-    h_pad, w_pad = nty * th, ntx * tw
-    c = params.max_tris // CLUSTER
-    kc = max_clusters_per_tile
-
-    # HBM blocks must tile to (·,128) lanes for sliced DMA, and in-kernel
-    # scalar loads need a STATIC lane index. Packed layout: 4 tris per
-    # 128-lane row (N_FIELDS == 32), so a cluster block is [CLUSTER//4,
-    # 128] — 4x less DMA traffic and VMEM scratch than padding the field
-    # dim to 128 (fallback layout, SCX_RASTER_PACKED=0).
-    if packed:
-        assert pipe.N_FIELDS == 128 // _PACK
-        rows = CLUSTER // _PACK
-        setup_blocks = setup.reshape(c, rows, 128)
-    else:
-        rows = CLUSTER
-        setup_pad = jnp.pad(setup, ((0, 0), (0, 128 - pipe.N_FIELDS)))
-        setup_blocks = setup_pad.reshape(c, CLUSTER, 128)
-
-    if cl_zmin is None:
-        cl_zmin = jnp.zeros((c,), jnp.float32)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(nty, ntx),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=[
-            pl.BlockSpec((th, tw), lambda ty, tx, *_: (ty, tx), memory_space=pltpu.VMEM),
-            pl.BlockSpec(
-                (N_ATTR, th, tw), lambda ty, tx, *_: (0, ty, tx),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((kc, rows, 128), jnp.float32),
-            pltpu.SemaphoreType.DMA((kc,)),
-        ],
+    """setup [T, F] + per-tile cluster lists -> G-buffer dict (one scene)."""
+    g = rasterize_clusters_batched(
+        setup[None], cl_ids[None], cl_counts[None], params,
+        max_clusters_per_tile,
+        cl_zmin=None if cl_zmin is None else cl_zmin[None],
     )
-    kernel = functools.partial(_kernel, params=params, kc_max=kc)
-    depth, attrs = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((h_pad, w_pad), jnp.float32),
-            jax.ShapeDtypeStruct((N_ATTR, h_pad, w_pad), jnp.float32),
-        ],
-        interpret=params.interpret,
-    )(cl_ids, cl_counts.astype(jnp.int32), cl_zmin.astype(jnp.float32), setup_blocks)
-
-    h, w = params.height, params.width
-    depth = depth[:h, :w]
-    attrs = attrs[:, :h, :w]
-    return {
-        "depth": depth,
-        "color": jnp.moveaxis(attrs[0:3], 0, -1),
-        "uv": jnp.moveaxis(attrs[3:5], 0, -1),
-        "mat": attrs[5].astype(jnp.int32),
-        "covered": depth < 1.0,
-    }
-
-
-def rasterize_clusters_batched(
-    setup, cl_ids, cl_counts, params, max_clusters_per_tile: int,
-    cl_zmin=None, smem_budget: int = 1 << 19, packed: bool | None = None,
-):
-    """Env-batched cluster rasterizer: setup [E,T,F], cl_ids [E,n_tiles,KC],
-    cl_counts [E,n_tiles], cl_zmin [E,C] -> G-buffer dict with a leading
-    env dim.  Grid = (E, tiles_y, tiles_x); each program DMAs its tile's
-    listed cluster blocks from the env's setup slab.
-
-    SMEM discipline (CLAUDE.md round-2 lesson: 2D scalar-prefetch operands
-    pad to 128 lanes, and big fleets blow the ~1 MiB SMEM budget): the
-    per-slot (cluster id, quantized zmin) pair is packed into ONE flat i32
-    word array, and the fleet is processed in env chunks small enough for
-    the words to fit `smem_budget`.
-    """
-    if packed is None:
-        packed = _PACKED
-    e = setup.shape[0]
-    nty, ntx = params.tiles_y, params.tiles_x
-    th, tw = params.tile_h, params.tile_w
-    h_pad, w_pad = nty * th, ntx * tw
-    n_tiles = nty * ntx
-    c = params.max_tris // CLUSTER
-    kc = max_clusters_per_tile
-
-    # per-slot zmin (floor-quantized 15 bits, conservative for the hz skip)
-    if cl_zmin is None:
-        zq = jnp.zeros(cl_ids.shape, jnp.int32)
-    else:
-        slot_z = jnp.take_along_axis(
-            cl_zmin[:, None, :].repeat(n_tiles, 1), cl_ids, axis=2
-        )
-        zq = jnp.floor(jnp.clip(slot_z, 0.0, 1.0) * _ZQ).astype(jnp.int32)
-    words = cl_ids.astype(jnp.int32) | (zq << 16)
-    counts = jnp.minimum(cl_counts, kc).astype(jnp.int32)
-
-    # env chunking: (a) words + counts must fit the ~1 MiB SMEM budget,
-    # (b) the DMA slab (built per chunk below) stays ~<=1.5 GiB. Packed
-    # blocks carry no lane pad (4 tris/row); the fallback layout pads
-    # 128/N_FIELDS ~ 4x.
-    rows = CLUSTER // _PACK if packed else CLUSTER
-    bytes_per_env = n_tiles * (kc + 1) * 4
-    slab_bytes_per_env = c * rows * 128 * 4
-    chunk = max(
-        1,
-        min(
-            e,
-            smem_budget // max(bytes_per_env, 1),
-            (3 * (1 << 29)) // max(slab_bytes_per_env, 1),
-        ),
-    )
-    while e % chunk:
-        chunk -= 1
-
-    kernel = functools.partial(
-        _kernel_batched, params=params, kc_max=kc, n_tiles=n_tiles
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(chunk, nty, ntx),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=[
-            # outputs laid out [chunk*h_pad, w_pad] so the tile body writes
-            # plain (th, tw) blocks (identical math to the single-scene path)
-            pl.BlockSpec(
-                (th, tw), lambda env, ty, tx, *_: (env * nty + ty, tx),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (N_ATTR, th, tw),
-                lambda env, ty, tx, *_: (0, env * nty + ty, tx),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((kc, rows, 128), jnp.float32),
-            pltpu.SemaphoreType.DMA((kc,)),
-        ],
-    )
-    call = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((chunk * h_pad, w_pad), jnp.float32),
-            jax.ShapeDtypeStruct((N_ATTR, chunk * h_pad, w_pad), jnp.float32),
-        ],
-        interpret=params.interpret,
-    )
-
-    def one_chunk(args):
-        w, cn, setup_c = args
-        if packed:
-            assert pipe.N_FIELDS == 128 // _PACK
-            blocks = setup_c.reshape(chunk, c, rows, 128)
-        else:
-            pad_c = jnp.pad(setup_c, ((0, 0), (0, 0), (0, 128 - pipe.N_FIELDS)))
-            blocks = pad_c.reshape(chunk, c, CLUSTER, 128)
-        d, a = call(w.reshape(-1), cn.reshape(-1), blocks)
-        return d.reshape(chunk, h_pad, w_pad), a.reshape(
-            N_ATTR, chunk, h_pad, w_pad
-        ).swapaxes(0, 1)
-
-    if chunk == e:
-        depth, attrs = one_chunk((words, counts, setup))
-    else:
-        g = e // chunk
-        depth, attrs = jax.lax.map(
-            one_chunk,
-            (
-                words.reshape(g, chunk, n_tiles, kc),
-                counts.reshape(g, chunk, n_tiles),
-                setup.reshape(g, chunk, setup.shape[1], setup.shape[2]),
-            ),
-        )
-        depth = depth.reshape(e, h_pad, w_pad)
-        attrs = attrs.reshape(e, N_ATTR, h_pad, w_pad)
-
-    h, w = params.height, params.width
-    depth = depth[:, :h, :w]
-    attrs = attrs[:, :, :h, :w]
-    return {
-        "depth": depth,
-        "color": jnp.moveaxis(attrs[:, 0:3], 1, -1),
-        "uv": jnp.moveaxis(attrs[:, 3:5], 1, -1),
-        "mat": attrs[:, 5].astype(jnp.int32),
-        "covered": depth < 1.0,
-    }
+    return jax.tree.map(lambda x: x[0], g)

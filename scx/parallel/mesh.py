@@ -1,7 +1,7 @@
 """Device mesh / sharding — the engine's distributed backend.
 
 The reference is a single-process engine with no networking (SURVEY §2
-parallelism item 7); its scale story is thread pools.  The TPU-native scale
+parallelism item 7); its scale story is thread pools.  This engine's scale
 story is SPMD over a jax.sharding.Mesh:
 
   * 'dp'  — the env/scene axis: thousands of independent city scenes sharded

@@ -3,9 +3,9 @@ ghost-halo exchange and ownership migration over the mesh's 'sp' axis.
 
 This is the sequence/context-parallel analogue for a world too big for one
 chip (SURVEY §7: "a single huge scene would shard spatially with halo
-exchange — ring-style neighbor comms over ICI").  The reference has no
+exchange — ring-style neighbor comms").  The reference has no
 equivalent (its answer to scale is LOD, §2.27); this is a first-class
-extension of the TPU build.
+extension of this engine.
 
 Scheme (classic ghost-particle domain decomposition):
   * The world's x extent is cut into S strips; shard k owns bodies with
@@ -41,7 +41,7 @@ from scx.physics.warmstart import empty_contact_cache
 
 def pack_rows(bodies, mask, cap: int, field: str = "active"):
     """Compact masked rows of a row-pytree into a fixed [cap] buffer
-    (scatter-rank — TPU-friendly: one cumsum + one scatter, no sort).
+    (scatter-rank: one cumsum + one scatter, no sort).
 
     Works on any struct whose leaves are [N, ...] columns with a boolean
     activity column named `field` (RigidBodies.active, EntityState.alive).

@@ -2,7 +2,7 @@
 world running across the mesh's 'sp' strips (VERDICT r3 item 5).
 
 The reference's defining loop is a streamed open world
-(sc_world_partition.cpp:799-966); the TPU build's defining capability is
+(sc_world_partition.cpp:799-966); this engine's defining capability is
 one-huge-scene spatial sharding (scx.parallel.bigscene). This module makes
 them meet:
 

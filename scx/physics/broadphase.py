@@ -1,9 +1,9 @@
 """Broadphase: masked all-pairs AABB overlap with fixed-capacity compaction.
 
-The reference uses Bullet's btDbvtBroadphase (dynamic BVH). Trees are hostile
-to the TPU's static-shape/vector model; for the target body counts per scene
+The reference uses Bullet's btDbvtBroadphase (dynamic BVH). Trees fit a
+static-shape array program badly; for the target body counts per scene
 (N <= a few hundred) the all-pairs overlap matrix IS the fast path: an [N,N]
-boolean op is one fused VPU pass, and turning it into a fixed-capacity pair
+boolean op is one fused elementwise pass, and turning it into a fixed-capacity pair
 list is a single sort — no pointers, no host sync.
 
 Layer/mask filtering matches Bullet's (aLayer & bMask) && (bLayer & aMask)
@@ -18,10 +18,9 @@ import jax.numpy as jnp
 from scx.physics.rigid import RigidBodies, body_aabbs
 
 # N*N band in which pair compaction uses top_k instead of a rank scatter
-# (tests patch these to force either path). Measured on v5e: top_k wins in
-# the mid range (160 bodies: -17% on the whole vmapped sim step) but loses
-# ~17% at tiny N (64-body bench scenes) where the scatter touches few
-# lanes, and loses again at huge N^2.
+# (tests patch these to force either path): top_k for mid-size scenes,
+# the rank scatter at tiny N (64-body bench scenes, where it touches few
+# elements) and at huge N^2. The band has not been re-measured on the GPU.
 _TOPK_MIN = 1 << 13
 _TOPK_LIMIT = 1 << 20
 
@@ -58,7 +57,7 @@ def broadphase_pairs(bodies: RigidBodies, max_pairs: int, margin: float = 0.02):
     both_active = act[:, None] & act[None, :]
 
     # upper triangle as an iota mask on the flattened matrix (a triu-index
-    # gather costs N^2/2 row-gathers on TPU)
+    # gather costs N^2/2 gathers)
     flat = jnp.arange(n * n, dtype=jnp.int32)
     flat_i = flat // n
     flat_j = flat - flat_i * n
@@ -81,12 +80,8 @@ def compact_flat_indices(valid, max_pairs: int, force_blockrank: bool = False):
     True count). Sort-free; shared by the pair-list and planar broadphases.
 
     force_blockrank: vmapped fleets MUST pass True — the small-m rank
-    scatter below batches into one flat element scatter (~200M elem/s,
-    CLAUDE.md quirk 4) that measured 19.3 ms/step at 1024 envs x 4096
-    lanes (65% of the whole planar physics step; it hid inside a kCustom
-    fusion attributed to the narrowphase until the device trace named
-    scx/physics/broadphase.py:126). The heuristic m-gate is only valid
-    for a SINGLE scene.
+    scatter below batches into one flat element scatter over the whole
+    fleet. The heuristic m-gate is only valid for a SINGLE scene.
     """
     m = valid.shape[0]
     flat = jnp.arange(m, dtype=jnp.int32)
@@ -96,9 +91,8 @@ def compact_flat_indices(valid, max_pairs: int, force_blockrank: bool = False):
         # index is found by (a) lane-wise cumsum within 128-lane blocks,
         # (b) a tiny [cap, B] compare-sum locating k's block from the
         # exclusive block bases, (c) one packed row gather + argmax for the
-        # lane. Replaces a top_k whose full [N^2] sort was the single
-        # biggest op of the RL physics step (26 ms/step at 1024 envs);
-        # exact same output order (ascending flat), no sort, no scatter.
+        # lane. Replaces a top_k over the full [N^2] flat index; exact same
+        # output order (ascending flat), no sort, no scatter.
         from scx.core import math3d as _m3
 
         w = 128
@@ -108,9 +102,9 @@ def compact_flat_indices(valid, max_pairs: int, force_blockrank: bool = False):
             v = jnp.concatenate([v, jnp.zeros((pad,), jnp.float32)])
         b = v.shape[0] // w
         v = v.reshape(b, w)
-        # lane cumsum as ONE triangular matmul ([B, W] @ [W, W] lands on
-        # the MXU; counts <= W are exact in f32) — jnp.cumsum lowers to a
-        # reduce-window chain that measured 0.40 ms/fleet-step at 1024x64
+        # lane cumsum as ONE triangular matmul ([B, W] @ [W, W]; counts
+        # <= W are exact in f32) instead of jnp.cumsum's reduce-window
+        # chain. Not yet A/B'd on the GPU (ROADMAP speed item 4).
         lanes = jnp.arange(w, dtype=jnp.int32)
         tri = (lanes[:, None] <= lanes[None, :]).astype(jnp.float32)
         lane_cum = jnp.matmul(v, tri, precision=_m3.PRECISION)  # [B, W]
@@ -123,10 +117,9 @@ def compact_flat_indices(valid, max_pairs: int, force_blockrank: bool = False):
         )
         b_k = jnp.clip(b_k, 0, b - 1)
         # block-row fetch as a one-hot matmul, NOT packed[b_k]: row/element
-        # gathers batch under vmap into [E*cap] row ops (the base[b_k]
-        # element gather alone measured 1.34 ms/fleet-step at 1024x64);
-        # the [cap, B] @ [B, 2W+1] one-hot (base rides along as an extra
-        # column) lands as ONE batched MXU GEMM — small ints, exact in f32
+        # gathers batch under vmap into [E*cap] row ops; the [cap, B] @
+        # [B, 2W+1] one-hot (base rides along as an extra column) is ONE
+        # batched GEMM — small ints, exact in f32
         packed = jnp.concatenate([lane_cum, v, base[:, None]], axis=1)
         oh = (
             jnp.arange(b, dtype=jnp.int32)[None, :] == b_k[:, None]

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from scx.core import struct
 
 from scx.core import math3d as m3
 from scx.physics.boxbox import box_box_contacts
@@ -243,7 +243,7 @@ def generate_contacts(
     from scx.physics.rigid import shape_centers
 
     # one packed row per body — each endpoint costs ONE gathered row
-    # instead of eight element gathers (TPU gathers move rows)
+    # instead of eight element gathers
     centers = shape_centers(bodies)
     rows = jnp.concatenate(
         [

@@ -1,4 +1,4 @@
-"""Plane-layout rigid-body physics — the TPU-native fleet hot path.
+"""Plane-layout rigid-body physics — the fleet hot path.
 
 Same semantics as the conventional path (rigid.py / broadphase.py /
 contacts.py / boxbox.py / solver.py — Bullet-matched box/sphere/capsule
@@ -7,19 +7,17 @@ reference: sc_physics.cpp:210-302), re-laid-out so that NOTHING
 materialized carries a tiny trailing dim:
 
   * vectors/quats are component planes (scx.physics.planes.V3/Q4) — [N]
-    per scene, [E, N] under vmap, zero tile padding;
+    per scene, [E, N] under vmap;
   * per-pair data is [P] planes, per-contact data [K, P] planes;
   * every gather/scatter is an orientation-aware one-hot matmul
     ([rows, N] @ [N, P] — the small packed dim leads, the large dim
-    lands in lanes), so nothing lowers to TPU row gathers or padded
-    matmul outputs.
+    is the minor one).
 
-Why: the conventional layout's vmapped step measured 268.7 ms/fleet-step
-at 1024 envs x 64 bodies (read-verified 2026-08-20) — the [E, P, 10, 3]
-SAT candidates pad to (16, 128) tiles (2.1 GB each) and the [E, C, 3]
-solver constants to (C, 128) (537 MB each, re-read every iteration).
-This layout eliminates that entire bill; the same formulas in the same
-order otherwise.
+Why: the conventional layout materializes [E, P, 10, 3] SAT candidates
+and [E, C, 3] solver constants whose 3-wide minor dim wastes most of
+every memory transaction, and the solver re-reads them every iteration.
+Plane layout keeps each quantity a dense [E, X] plane; the same formulas
+in the same order otherwise.
 
 vmap over the leading axis for env fleets; lax.scan over steps with
 (PlanarBodies, PlanarCache) as carry.
@@ -27,11 +25,9 @@ vmap over the leading axis for env fleets; lax.scan over steps with
 
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
-from flax import struct
+from scx.core import struct
 
 from scx.core import math3d as m3
 from scx.physics import planes as pl
@@ -233,7 +229,7 @@ def planar_broadphase(b: PlanarBodies, max_pairs: int, margin: float = 0.02):
         & (flat_i < flat_j)
     )
     # force the block-rank compaction: planar scenes are vmapped fleets,
-    # where the small-m rank scatter batches into a 19 ms flat scatter
+    # where the small-m rank scatter batches into one flat scatter
     kflat, n_valid = compact_flat_indices(valid, max_pairs, force_blockrank=True)
     ia = kflat // n
     ib = kflat - ia * n
@@ -258,22 +254,13 @@ def _mm(a, b):
     return jnp.matmul(a, b, precision=m3.PRECISION)
 
 
-_BARRIERS = [True]  # disabled while tracing inside the Pallas SAT kernel
-
-
 def _bar(tree):
     """Materialization barrier. XLA fusions have no temporaries — a node
     feeding k consumers inside one fusion is RECOMPUTED k times — and the
-    narrowphase's deeply-shared SAT chain fused into a single kernel that
-    measured 19.3 ms/step at 1024x64 (one fusion = 65% of the whole step,
-    scripts/trace_planar_contacts.py 2026-08-20). Forcing the shared
-    intermediates to materialize cuts the duplication; the planes are
-    ~1 MB each so the extra HBM round-trips are noise by comparison.
-
-    Inside the Pallas SAT kernel this is a no-op: Mosaic emits SSA with
-    CSE (no duplication) and has no lowering for optimization_barrier."""
-    if not _BARRIERS[0]:
-        return tree
+    narrowphase's deeply-shared SAT chain otherwise fuses into one kernel
+    that recomputes the shared intermediates for every consumer. Forcing
+    them to materialize cuts the duplication; each plane is ~1 MB at
+    1024x64, so the extra memory round-trips are cheap by comparison."""
     return jax.lax.optimization_barrier(tree)
 
 
@@ -642,7 +629,7 @@ def _pair_candidates(
     kinds: static hint of which shape types exist ANYWHERE in the scene
     (SolverParams.shape_kinds). ("box",) drops the capsule/sphere
     candidate generators and the 4-way select — the box-only headline
-    fleet's SAT kernel body roughly halves."""
+    fleet's narrowphase roughly halves."""
     if tuple(kinds) == ("box",):
         return _box_box(pos_a, quat_a, size_a, pos_b, quat_b, size_b)
     cap_a = V3(size_a.x, jnp.where(shape_a == SHAPE_SPHERE, 0.0, size_a.y), size_a.z)
@@ -663,10 +650,7 @@ def _pair_candidates(
     a_cap_b_box = (~is_box_a) & is_box_b
 
     z = jnp.zeros_like(pos_a.x)
-    # always-False via f32 compare, not a bool-zeros constant: Mosaic
-    # materializes dense i1 constants as i8 + trunci, which it then
-    # rejects ("Unsupported target bitwidth for truncation")
-    invalid = (V3(z, z, z), V3(z, z, z), z - 1.0, z > jnp.float32(1.0))
+    invalid = (V3(z, z, z), V3(z, z, z), z - 1.0, jnp.zeros_like(z, bool))
     cc_list = [(cc_p, cc_n, cc_d, cc_v)] + [invalid] * 9
     cb_list = list(cb_c) + [invalid] * 5
     bc_list = list(bc_c) + [invalid] * 5
@@ -676,12 +660,8 @@ def _pair_candidates(
         pt = pl.vwhere(bb, bbq[0], pl.vwhere(cc, ccq[0], pl.vwhere(a_cap_b_box, cbq[0], bcq[0])))
         nm = pl.vwhere(bb, bbq[1], pl.vwhere(cc, ccq[1], pl.vwhere(a_cap_b_box, cbq[1], bcq[1])))
         dp = jnp.where(bb, bbq[2], jnp.where(cc, ccq[2], jnp.where(a_cap_b_box, cbq[2], bcq[2])))
-        # validity selects route through f32 (exact bool roundtrip):
-        # Mosaic legalizes select-of-i1-vectors via i8 + trunci and then
-        # rejects the trunc ("Unsupported target bitwidth for truncation")
-        f = lambda q: q[3].astype(jnp.float32)
-        vdf = jnp.where(bb, f(bbq), jnp.where(cc, f(ccq), jnp.where(a_cap_b_box, f(cbq), f(bcq))))
-        return pt, nm, dp, vdf > 0.5
+        vd = jnp.where(bb, bbq[3], jnp.where(cc, ccq[3], jnp.where(a_cap_b_box, cbq[3], bcq[3])))
+        return pt, nm, dp, vd
 
     return [
         sel4(s, (bb_c[s], cc_list[s], cb_list[s], bc_list[s]))
@@ -709,18 +689,14 @@ class PlanarContacts:
     pair_valid: jax.Array       # [P] bool (broadphase validity)
 
 
-def _sat_core(ga, gb, pvf, use_stack: bool, kinds=_ALL_KINDS):
+def _sat_core(ga, gb, pvf, kinds=_ALL_KINDS):
     """SAT narrowphase + top-K selection from gathered pair rows.
 
-    ga/gb [14, P] f32 (or [Eb, 14, P]-sliced planes inside the Pallas
-    kernel — everything broadcasts); pvf [P] f32 broadphase validity.
-    Returns a 12-tuple of plain arrays (see _SAT_OUT below).
+    ga/gb [14, P] f32 (rows past 14 are ignored); pvf [P] f32 broadphase
+    validity. Returns a 12-tuple of plain arrays (see _sat_ref).
 
-    use_stack selects the top-K implementation: jnp.stack + argmax for
-    the XLA path (selecting from live candidate expressions makes XLA
-    duplicate the whole SAT graph into every select), a first-max select
-    loop for the Mosaic path (SSA + CSE, no duplication; leading-axis
-    argmax is the riskier lowering there). Identical results.
+    Top-K is jnp.stack + argmax: selecting from live candidate expressions
+    instead makes XLA duplicate the whole SAT graph into every select.
     """
     pair_valid = pvf > 0.5
 
@@ -742,59 +718,31 @@ def _sat_core(ga, gb, pvf, use_stack: bool, kinds=_ALL_KINDS):
     )
     neg_inf = jnp.float32(-jnp.inf)
     sel_pt, sel_nm, sel_dp, sel_vd, sel_id = [], [], [], [], []
-    if use_stack:
-        # top-K deepest == the conventional path's lax.top_k over 10
-        # (argmax picks the first occurrence of the max)
-        dp_s = jnp.stack([c[2] for c in cands])                # [10, ...]
-        vd_s = jnp.stack([c[3] for c in cands])
-        ptx = jnp.stack([c[0].x for c in cands])
-        pty = jnp.stack([c[0].y for c in cands])
-        ptz = jnp.stack([c[0].z for c in cands])
-        nmx = jnp.stack([c[1].x for c in cands])
-        nmy = jnp.stack([c[1].y for c in cands])
-        nmz = jnp.stack([c[1].z for c in cands])
-        score = jnp.where(vd_s & pair_valid[None], dp_s, neg_inf)
-        slot_ids = jnp.arange(_N_CAND, dtype=jnp.int32).reshape(
-            (_N_CAND,) + (1,) * (score.ndim - 1)
-        )
-        for _k in range(_K):
-            best = jnp.max(score, axis=0)
-            bidx = jnp.argmax(score, axis=0).astype(jnp.int32)
-            oh = slot_ids == bidx[None]
-            pick = lambda s: jnp.sum(jnp.where(oh, s, 0.0), axis=0)
-            sel_pt.append(V3(pick(ptx), pick(pty), pick(ptz)))
-            sel_nm.append(V3(pick(nmx), pick(nmy), pick(nmz)))
-            sel_dp.append(pick(dp_s))
-            sel_vd.append(jnp.isfinite(best) & (best > 0.0))
-            sel_id.append(bidx)
-            score = jnp.where(oh, neg_inf, score)
-    else:
-        scores = [
-            jnp.where(vd & pair_valid, dp, neg_inf)
-            for (_, _, dp, vd) in cands
-        ]
-        for _k in range(_K):
-            best = scores[0]
-            bidx = jnp.zeros_like(shape_a)
-            for s in range(1, _N_CAND):
-                better = scores[s] > best  # strict: first-max like argmax
-                bidx = jnp.where(better, s, bidx)
-                best = jnp.maximum(best, scores[s])
-            p, nm, dp = cands[0][0], cands[0][1], cands[0][2]
-            for s in range(1, _N_CAND):
-                hit = bidx == s
-                p = pl.vwhere(hit, cands[s][0], p)
-                nm = pl.vwhere(hit, cands[s][1], nm)
-                dp = jnp.where(hit, cands[s][2], dp)
-            sel_pt.append(p)
-            sel_nm.append(nm)
-            sel_dp.append(dp)
-            sel_vd.append(jnp.isfinite(best) & (best > 0.0))
-            sel_id.append(bidx)
-            scores = [
-                jnp.where(bidx == s, neg_inf, scores[s])
-                for s in range(_N_CAND)
-            ]
+    # top-K deepest == the conventional path's lax.top_k over 10
+    # (argmax picks the first occurrence of the max)
+    dp_s = jnp.stack([c[2] for c in cands])                # [10, ...]
+    vd_s = jnp.stack([c[3] for c in cands])
+    ptx = jnp.stack([c[0].x for c in cands])
+    pty = jnp.stack([c[0].y for c in cands])
+    ptz = jnp.stack([c[0].z for c in cands])
+    nmx = jnp.stack([c[1].x for c in cands])
+    nmy = jnp.stack([c[1].y for c in cands])
+    nmz = jnp.stack([c[1].z for c in cands])
+    score = jnp.where(vd_s & pair_valid[None], dp_s, neg_inf)
+    slot_ids = jnp.arange(_N_CAND, dtype=jnp.int32).reshape(
+        (_N_CAND,) + (1,) * (score.ndim - 1)
+    )
+    for _k in range(_K):
+        best = jnp.max(score, axis=0)
+        bidx = jnp.argmax(score, axis=0).astype(jnp.int32)
+        oh = slot_ids == bidx[None]
+        pick = lambda s: jnp.sum(jnp.where(oh, s, 0.0), axis=0)
+        sel_pt.append(V3(pick(ptx), pick(pty), pick(ptz)))
+        sel_nm.append(V3(pick(nmx), pick(nmy), pick(nmz)))
+        sel_dp.append(pick(dp_s))
+        sel_vd.append(jnp.isfinite(best) & (best > 0.0))
+        sel_id.append(bidx)
+        score = jnp.where(oh, neg_inf, score)
 
     return (
         [p.x for p in sel_pt], [p.y for p in sel_pt], [p.z for p in sel_pt],
@@ -810,156 +758,9 @@ def _sat_core(ga, gb, pvf, use_stack: bool, kinds=_ALL_KINDS):
 
 def _sat_ref(ga, gb, pvf, kinds=_ALL_KINDS):
     """Per-scene SAT: stacks the per-contact lists to [K, P] arrays."""
-    out = _sat_core(ga, gb, pvf, use_stack=True, kinds=kinds)
+    out = _sat_core(ga, gb, pvf, kinds=kinds)
     stK = lambda xs: jnp.stack(xs, axis=0)
     return tuple(stK(o) if isinstance(o, list) else o for o in out)
-
-
-def _sat_fleet_pallas(ga, gb, pvf, interpret=False, kinds=_ALL_KINDS):
-    """Fleet SAT as ONE Pallas kernel, grid over env blocks.
-
-    The XLA path emits the narrowphase as ~200 small fusions whose launch
-    overhead and materialization dominate (the long tail of the device
-    trace); Mosaic emits the whole chain as straight-line vector code
-    with CSE. ga/gb [E, 14, P], pvf [E, P] f32 -> the _sat_ref outputs
-    batched on axis 0.
-    """
-    from jax.experimental import pallas as plx
-
-    e, w, p = ga.shape
-    # block = eb envs. Swept on chip (bench_planar_kernels.py, 2026-08-20):
-    # eb=8 2.21 ms, eb=16 2.52 ms, eb=32 VMEM OOM (17.06M > 16M) — the
-    # body is VMEM-scheduling-bound, not instruction-issue-bound, so one
-    # native (8, 128) tile per op is optimal. SCX_PLANAR_SAT_EB overrides
-    # for sweeps.
-    eb = int(os.environ.get("SCX_PLANAR_SAT_EB", "8"))
-    while eb > 8 and e % eb:
-        eb //= 2
-    if e % eb:
-        eb = e
-    grid = (e // eb,)
-
-    def kernel(ga_ref, gb_ref, pv_ref, *outs):
-        old = _BARRIERS[0]
-        _BARRIERS[0] = False
-        try:
-            res = _sat_core(ga_ref[...], gb_ref[...], pv_ref[...],
-                            use_stack=False, kinds=kinds)
-        finally:
-            _BARRIERS[0] = old
-        (ptx, pty, ptz, nmx, nmy, nmz, dp, vd, cid, fr, re, tg) = res
-        # every output is a flat [eb, p] plane — Mosaic SIGABRTs when the
-        # full SAT body stores into [:, k, :] slices of a 3D block (the
-        # minimal store pattern alone is fine); K planes per field, the
-        # caller stacks them outside the kernel
-        o = 0
-        for group in (ptx, pty, ptz, nmx, nmy, nmz, dp, vd, cid):
-            for k in range(_K):
-                outs[o][...] = group[k]
-                o += 1
-        outs[o][...] = fr
-        outs[o + 1][...] = re
-        outs[o + 2][...] = tg
-
-    pp_ = lambda: plx.BlockSpec((eb, p), lambda i: (i, 0))
-    f32 = jnp.float32
-    out_shape = (
-        [jax.ShapeDtypeStruct((e, p), f32)] * (8 * _K)
-        + [jax.ShapeDtypeStruct((e, p), jnp.int32)] * _K
-        + [jax.ShapeDtypeStruct((e, p), f32)] * 3
-    )
-    flat = plx.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            plx.BlockSpec((eb, w, p), lambda i: (i, 0, 0)),
-            plx.BlockSpec((eb, w, p), lambda i: (i, 0, 0)),
-            pp_(),
-        ],
-        out_specs=[pp_()] * len(out_shape),
-        out_shape=out_shape,
-        interpret=interpret,
-    )(ga, gb, pvf)
-    stacked = [
-        jnp.stack(flat[g * _K:(g + 1) * _K], axis=1) for g in range(9)
-    ]
-    return tuple(stacked) + tuple(flat[9 * _K:])
-
-
-_KERNEL_OK: dict = {}  # kinds -> True/False cached Mosaic verdict
-
-
-def _kernel_supported(kinds=_ALL_KINDS) -> bool:
-    """Probe once whether Mosaic accepts the fleet SAT lowering.
-
-    Compiles a tiny (8 env x 128 pair) instance eagerly the first time a
-    TPU-class backend would take the kernel path; Mosaic rejections (this
-    repo has precedent: commit 96c86f9) surface here as an exception and
-    flip every subsequent fleet step to the vmapped XLA reference instead
-    of throwing from inside the user's jit. Pallas kernels compile in
-    seconds (CLAUDE.md quirk 3), so the one-time probe is cheap.
-    """
-    key = tuple(kinds)
-    if key not in _KERNEL_OK:
-        try:
-            z3 = jnp.zeros((8, 14, 128), jnp.float32)
-            z2 = jnp.zeros((8, 128), jnp.float32)
-            jax.jit(
-                lambda *a: _sat_fleet_pallas(*a, kinds=key)
-            ).lower(z3, z3, z2).compile()
-            _KERNEL_OK[key] = True
-        except Exception as exc:  # Mosaic lowering rejection
-            from scx.core.log import warn
-
-            warn(
-                "planar: Pallas SAT kernel rejected by the backend "
-                f"({type(exc).__name__}); falling back to the XLA "
-                "narrowphase. %s",
-                str(exc)[:200],
-            )
-            _KERNEL_OK[key] = False
-    return _KERNEL_OK[key]
-
-
-_SAT_DISPATCH: dict = {}
-
-
-def _sat_dispatch(kinds=_ALL_KINDS):
-    """custom_vmap SAT dispatcher per static shape-kind hint."""
-    key = tuple(kinds)
-    if key in _SAT_DISPATCH:
-        return _SAT_DISPATCH[key]
-
-    @jax.custom_batching.custom_vmap
-    def _sat(ga, gb, pvf):
-        return _sat_ref(ga, gb, pvf, kinds=key)
-
-    @_sat.def_vmap
-    def _sat_vmap(axis_size, in_batched, ga, gb, pvf):
-        """Batched (env-fleet) SAT: one Pallas kernel on TPU-class
-        backends, vmapped XLA reference elsewhere or for shapes the
-        kernel doesn't block cleanly."""
-        if not all(in_batched):
-            ga, gb, pvf = (
-                x if b else jnp.broadcast_to(x[None], (axis_size,) + x.shape)
-                for x, b in zip((ga, gb, pvf), in_batched)
-            )
-        use_kernel = (
-            ga.ndim == 3
-            and ga.shape[-1] % 128 == 0
-            and ga.shape[0] % 8 == 0
-            and jax.default_backend() != "cpu"
-            and os.environ.get("SCX_PLANAR_NO_PALLAS", "0") != "1"
-            and _kernel_supported(key)
-        )
-        if use_kernel:
-            out = _sat_fleet_pallas(ga, gb, pvf, kinds=key)
-        else:
-            out = jax.vmap(lambda *a: _sat_ref(*a, kinds=key))(ga, gb, pvf)
-        return out, tuple(True for _ in out)
-
-    _SAT_DISPATCH[key] = _sat
-    return _sat
 
 
 def _sat_inputs(b: PlanarBodies, ia, ib, pair_valid):
@@ -988,9 +789,9 @@ def planar_contacts(b: PlanarBodies, ia, ib, pair_valid,
                     kinds=_ALL_KINDS) -> PlanarContacts:
     ga, gb, pvf = _sat_inputs(b, ia, ib, pair_valid)
 
-    (ptx, pty, ptz, nmx, nmy, nmz, dp, vdf, cid, fr, re, tgf) = _sat_dispatch(
-        kinds
-    )(ga, gb, pvf)
+    (ptx, pty, ptz, nmx, nmy, nmz, dp, vdf, cid, fr, re, tgf) = _sat_ref(
+        ga, gb, pvf, kinds=tuple(kinds)
+    )
     valid_raw = vdf > 0.5
     is_trigger = tgf > 0.5
     return PlanarContacts(
@@ -1117,53 +918,11 @@ def _tangents(n: V3):
     return t1, t2
 
 
-# --- pack layout for the iteration core -----------------------------------
-# jac pack rows are quantity-major, k-minor: quantity q's K=4 contact-slot
-# planes live at rows [4q, 4q+4). V3 quantities occupy 3 consecutive
-# quantity slots (x, y, z). The trailing _PAIR_ROWS are [P] per-pair rows
-# replicated once (not per-k).
-_SOLVE_V3 = ("n", "t1", "t2", "a_an", "a_bn", "a_a1", "a_b1", "a_a2",
-             "a_b2", "r_a", "r_b")
-_SOLVE_SCALAR = ("kn", "k1", "k2", "target", "cvalid", "ln0", "l10", "l20")
-_SOLVE_NQ = len(_SOLVE_V3) * 3 + len(_SOLVE_SCALAR)          # 41
-_SOLVE_PAIR = ("im_a", "im_b", "relax", "fr")
-_SOLVE_R = _SOLVE_NQ * _K + len(_SOLVE_PAIR)                 # 168
-
-
-def _solve_q(name: str) -> int:
-    """Quantity index of a scalar quantity / first component of a V3."""
-    i = 0
-    for v in _SOLVE_V3:
-        if v == name:
-            return i
-        i += 3
-    return i + _SOLVE_SCALAR.index(name)
-
-
-def _bmm(a, b):
-    """_mm that also takes leading batch dims (batched MXU dot)."""
-    if a.ndim == 2:
-        return _mm(a, b)
-    return jax.lax.dot_general(
-        a, b,
-        dimension_numbers=(((a.ndim - 1,), (b.ndim - 2,)), ((0,), (0,))),
-        precision=m3.PRECISION,
-        preferred_element_type=jnp.float32,
-    )
-
-
-def _bmm_nt(a, b):
+def _mm_nt(a, b):
     """a @ b^T without materializing the transpose: contracts a's last
-    dim with b's LAST dim (batched over one optional leading dim). Inside
-    Pallas this avoids shipping/relayouting [P, N] transposes of the
-    one-hots; the MXU contracts either layout."""
-    if a.ndim == 2:
-        return jax.lax.dot_general(
-            a, b, dimension_numbers=(((1,), (1,)), ((), ())),
-            precision=m3.PRECISION, preferred_element_type=jnp.float32,
-        )
+    dim with b's last dim."""
     return jax.lax.dot_general(
-        a, b, dimension_numbers=(((2,), (2,)), ((0,), (0,))),
+        a, b, dimension_numbers=(((1,), (1,)), ((), ())),
         precision=m3.PRECISION, preferred_element_type=jnp.float32,
     )
 
@@ -1173,10 +932,10 @@ def _iter_loop(q, oh_a, oh_b, vw0, iterations: int):
 
     q: dict of iteration-invariant operands — V3-of-[..., K, P] planes
     for n/t1/t2/a_*/r_*, [..., K, P] for kn/k1/k2/target/cvalid/ln0/l10/
-    l20, [..., 1, P] for im_a/im_b/relax/fr. oh_a/oh_b [..., N, P] f32
-    one-hots, vw0 [..., 6, N]. Returns (vw, ln, l1, l2). Shared verbatim
-    by the per-scene XLA path, the standalone solve kernel and the fused
-    middle kernel so every path stays formula-identical."""
+    l20, [..., P] or [..., 1, P] for im_a/im_b/relax/fr. oh_a/oh_b
+    [..., N, P] f32 one-hots, vw0 [..., 6, N]. Returns (vw, ln, l1, l2).
+    Shared verbatim by the staged solve and the fused middle so both
+    paths stay formula-identical."""
     n, t1, t2 = q["n"], q["t1"], q["t2"]
     a_an, a_bn = q["a_an"], q["a_bn"]
     a_a1, a_b1 = q["a_a1"], q["a_b1"]
@@ -1188,13 +947,13 @@ def _iter_loop(q, oh_a, oh_b, vw0, iterations: int):
     im_a, im_b = q["im_a"], q["im_b"]
     relax, fr = q["relax"], q["fr"]
     cv = q["cvalid"] > 0.5
-    # both sides in ONE MXU dot per direction: gather [.., 6, N] @
+    # both sides in ONE dot per direction: gather [.., 6, N] @
     # [.., N, 2P], scatter [.., 6, 2P] x [.., N, 2P] contracted over 2P
     oh2 = jnp.concatenate([oh_a, oh_b], axis=-1)
     p_cap = oh_a.shape[-1]
 
     def one_pass(vw, ln, l1, l2):
-        g = _bmm(vw, oh2)                      # [..., 6, 2P]
+        g = _mm(vw, oh2)                      # [..., 6, 2P]
         sa_ = lambda i: g[..., i:i + 1, :p_cap]
         sb_ = lambda i: g[..., i:i + 1, p_cap:]
         va = V3(sa_(0), sa_(1), sa_(2))
@@ -1240,161 +999,13 @@ def _iter_loop(q, oh_a, oh_b, vw0, iterations: int):
             ],
             axis=-2,
         )                                       # [..., 6, 2P]
-        vw = vw + _bmm_nt(upd, oh2)
+        vw = vw + _mm_nt(upd, oh2)
         return vw, ln_new, l1_new, l2_new
 
     vw = vw0
     for _ in range(iterations):
         vw, ln, l1, l2 = one_pass(vw, ln, l1, l2)
     return vw, ln, l1, l2
-
-
-def _solve_iter_core(jac, oh_a, oh_b, vw0, iterations: int):
-    """The relaxed-Jacobi iteration loop from packed operands.
-
-    jac [R, P] (layout above), oh_a/oh_b [N, P] f32 one-hots, vw0
-    [6, N]. Returns (vw [6, N], lam [12, P]: ln/l1/l2 k-minor).
-    Shape-generic over ONE leading batch dim ([Eb, R, P] etc. — gathers
-    become batched MXU dots); unpacks jac and defers to _iter_loop, the
-    sweep loop shared with the fused middle kernel."""
-    K = _K
-
-    def q(name):          # [..., K, P] slot planes of a scalar quantity
-        base = _solve_q(name) * K
-        return jac[..., base:base + K, :]
-
-    def qv(name):         # V3 of [..., K, P]
-        base = _solve_q(name) * K
-        return V3(jac[..., base:base + K, :],
-                  jac[..., base + K:base + 2 * K, :],
-                  jac[..., base + 2 * K:base + 3 * K, :])
-
-    def pair(name):       # [..., 1, P]
-        i = _SOLVE_NQ * K + _SOLVE_PAIR.index(name)
-        return jac[..., i:i + 1, :]
-
-    quantities = {name: qv(name) for name in _SOLVE_V3}
-    quantities.update({name: q(name) for name in _SOLVE_SCALAR})
-    quantities.update({name: pair(name) for name in _SOLVE_PAIR})
-    vw, ln, l1, l2 = _iter_loop(quantities, oh_a, oh_b, vw0, iterations)
-    return vw, jnp.concatenate([ln, l1, l2], axis=-2)
-
-
-def _solve_fleet_pallas(jac, oh_a, oh_b, vw0,
-                        iterations: int, interpret=False):
-    """The iteration loop as ONE Pallas kernel, grid over 8-env blocks.
-
-    All 6 iterations run VMEM-resident: the XLA scan materializes ~30
-    [E, K, P] planes to HBM between fusions EVERY iteration (measured
-    7.3 ms of the 31 ms step at 1024x64, P=256), the kernel touches HBM
-    once in and once out. jac [E, R, P], one-hots [E, N, P], vw0
-    [E, 6, N] (the scatter contracts the one-hots' last dim directly —
-    no transposes shipped)."""
-    from jax.experimental import pallas as plx
-
-    e, r, p = jac.shape
-    nb = oh_a.shape[1]
-    eb = int(os.environ.get("SCX_PLANAR_SOLVE_EB", "8"))
-    while eb > 8 and e % eb:
-        eb //= 2
-    if e % eb:
-        eb = e
-    grid = (e // eb,)
-
-    def kernel(jac_ref, oa_ref, ob_ref, vw_ref, vw_out, lam_out):
-        vw, lam = _solve_iter_core(
-            jac_ref[...], oa_ref[...], ob_ref[...], vw_ref[...], iterations,
-        )
-        vw_out[...] = vw
-        lam_out[...] = lam
-
-    f32 = jnp.float32
-    vw, lam = plx.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            plx.BlockSpec((eb, r, p), lambda i: (i, 0, 0)),
-            plx.BlockSpec((eb, nb, p), lambda i: (i, 0, 0)),
-            plx.BlockSpec((eb, nb, p), lambda i: (i, 0, 0)),
-            plx.BlockSpec((eb, 6, nb), lambda i: (i, 0, 0)),
-        ],
-        out_specs=[
-            plx.BlockSpec((eb, 6, nb), lambda i: (i, 0, 0)),
-            plx.BlockSpec((eb, 12, p), lambda i: (i, 0, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((e, 6, nb), f32),
-            jax.ShapeDtypeStruct((e, 12, p), f32),
-        ],
-        interpret=interpret,
-    )(jac, oh_a, oh_b, vw0)
-    return vw, lam
-
-
-_SOLVE_KERNEL_OK: dict = {}
-
-
-def _solve_kernel_supported(iterations: int) -> bool:
-    """Per-iteration-count Mosaic probe, mirroring _kernel_supported."""
-    if iterations not in _SOLVE_KERNEL_OK:
-        try:
-            jac = jnp.zeros((8, _SOLVE_R, 128), jnp.float32)
-            oh = jnp.zeros((8, 64, 128), jnp.float32)
-            vw = jnp.zeros((8, 6, 64), jnp.float32)
-            jax.jit(
-                lambda *a: _solve_fleet_pallas(*a, iterations=iterations)
-            ).lower(jac, oh, oh, vw).compile()
-            _SOLVE_KERNEL_OK[iterations] = True
-        except Exception as exc:
-            from scx.core.log import warn
-
-            warn(
-                "planar: Pallas solve kernel rejected (%s); using the XLA "
-                "iteration path. %s", type(exc).__name__, str(exc)[:200],
-            )
-            _SOLVE_KERNEL_OK[iterations] = False
-    return _SOLVE_KERNEL_OK[iterations]
-
-
-_SOLVE_DISPATCH: dict = {}
-
-
-def _solve_iterate(iterations: int):
-    """custom_vmap dispatcher: per-scene XLA core, Pallas kernel for
-    vmapped fleets on TPU-class backends (same pattern as _sat)."""
-    if iterations in _SOLVE_DISPATCH:
-        return _SOLVE_DISPATCH[iterations]
-
-    @jax.custom_batching.custom_vmap
-    def solve_it(jac, oh_a, oh_b, vw0):
-        return _solve_iter_core(jac, oh_a, oh_b, vw0, iterations)
-
-    @solve_it.def_vmap
-    def _vmap_rule(axis_size, in_batched, jac, oh_a, oh_b, vw0):
-        args = (jac, oh_a, oh_b, vw0)
-        if not all(in_batched):
-            args = tuple(
-                x if bt else jnp.broadcast_to(x[None], (axis_size,) + x.shape)
-                for x, bt in zip(args, in_batched)
-            )
-        use_kernel = (
-            args[0].ndim == 3
-            and args[0].shape[-1] % 128 == 0
-            and args[0].shape[0] % 8 == 0
-            and jax.default_backend() != "cpu"
-            and os.environ.get("SCX_PLANAR_NO_PALLAS", "0") != "1"
-            and _solve_kernel_supported(iterations)
-        )
-        if use_kernel:
-            out = _solve_fleet_pallas(*args, iterations=iterations)
-        else:
-            out = jax.vmap(
-                lambda *a: _solve_iter_core(*a, iterations=iterations)
-            )(*args)
-        return out, (True, True)
-
-    _SOLVE_DISPATCH[iterations] = solve_it
-    return solve_it
 
 
 def planar_solve(b: PlanarBodies, con: PlanarContacts, params: SolverParams,
@@ -1519,10 +1130,6 @@ def planar_solve(b: PlanarBodies, con: PlanarContacts, params: SolverParams,
         dw_b = a_bn * ln0 + a_b1 * l10 + a_b2 * l20
         vw0 = apply_upd(vw0, imp * im_a, dw_a, imp * im_b, dw_b)
 
-    # ---- pack the iteration-invariant operands; run the loop through
-    # the dispatcher (XLA per scene, one Pallas kernel per fleet) -------
-    kp = jnp.broadcast_to
-    shape = kn.shape  # [K, P]
     quantities = {
         "n": n, "t1": t1, "t2": t2, "a_an": a_an, "a_bn": a_bn,
         "a_a1": a_a1, "a_b1": a_b1, "a_a2": a_a2, "a_b2": a_b2,
@@ -1530,21 +1137,11 @@ def planar_solve(b: PlanarBodies, con: PlanarContacts, params: SolverParams,
         "kn": kn, "k1": k1, "k2": k2, "target": target,
         "cvalid": c_valid.astype(jnp.float32),
         "ln0": ln0, "l10": l10, "l20": l20,
+        "im_a": im_a, "im_b": im_b, "relax": relax, "fr": fr,
     }
-    rows = []
-    for name in _SOLVE_V3:
-        v = quantities[name]
-        rows += [kp(v.x, shape), kp(v.y, shape), kp(v.z, shape)]
-    for name in _SOLVE_SCALAR:
-        rows.append(kp(quantities[name], shape))
-    prows = {"im_a": im_a, "im_b": im_b, "relax": relax[0], "fr": fr[0]}
-    jac = jnp.concatenate(
-        [jnp.concatenate(rows, axis=0)]
-        + [prows[nm][None, :] for nm in _SOLVE_PAIR],
-        axis=0,
-    )  # [R, P]
-    vw, lam = _solve_iterate(params.iterations)(jac, oh_a, oh_b, vw0)
-    ln, l1, l2 = lam[:_K], lam[_K:2 * _K], lam[2 * _K:]
+    vw, ln, l1, l2 = _iter_loop(
+        quantities, oh_a, oh_b, vw0, params.iterations
+    )
     vel = V3(vw[0], vw[1], vw[2])
     omega = V3(vw[3], vw[4], vw[5])
     return vel, omega, (ln, l1, l2), cnt
@@ -1552,14 +1149,12 @@ def planar_solve(b: PlanarBodies, con: PlanarContacts, params: SolverParams,
 
 # ---------------------------------------------------------------------------
 # fused middle: SAT narrowphase + warm-start gather + velocity solve as ONE
-# dispatchable unit (one Pallas kernel per fleet on TPU-class backends)
+# function of packed operands
 # ---------------------------------------------------------------------------
 # The staged path (planar_contacts -> planar_gather_warm -> planar_solve)
-# round-trips every intermediate through HBM and leaves XLA ~2.8 ms/step of
-# glue fusions between the two kernels at 1024x64 (device trace 2026-08-21:
-# SAT kernel 0.80 ms + solve kernel 0.77 ms + glue; jac pack alone is an
-# [E, 168, P] materialization). The fused core runs the same formulas in the
-# same order from 21 packed body rows, entirely VMEM-resident per env block.
+# builds the same quantities through separate helpers. The fused core runs
+# the same formulas in the same order from 21 packed body rows, so the
+# per-pair gathers happen once per step.
 
 # rows layout for _middle_core ([S=21, N] per scene):
 #   0:14  the SAT operand rows of _sat_inputs (centers, quat, shape, size,
@@ -1573,8 +1168,7 @@ _MID_ROWS = 21
 def _warm_prev(cache: PlanarCache, ka, kb, pair_valid):
     """The key-matched previous pair record (planar_gather_warm's match +
     gather, without the slot re-association): [4K, P] — cand+1 rows then
-    lam_n/lam_1/lam_2 rows. Runs in XLA even on the fused path (Mosaic
-    rejects the lane->sublane outer-compare the [P, P] match needs)."""
+    lam_n/lam_1/lam_2 rows."""
     onehot = (
         (ka[:, None] == cache.key_a[None, :])
         & (kb[:, None] == cache.key_b[None, :])
@@ -1594,22 +1188,19 @@ def _warm_prev(cache: PlanarCache, ka, kb, pair_valid):
 
 
 def _middle_core(rows, ia, ib, pvf, prev, vw0,
-                 params: SolverParams, use_stack: bool, kinds=_ALL_KINDS):
-    """Contacts + warm gather + solve from packed operands, shape-generic
-    over ONE leading batch dim (2D per scene / [Eb, ...] blocks inside the
-    fused Pallas kernel). Formula-identical to the staged path: the SAT
+                 params: SolverParams, kinds=_ALL_KINDS):
+    """Contacts + warm gather + solve from packed operands for one scene
+    (vmap over scenes). Formula-identical to the staged path: the SAT
     core, warm re-association and _iter_loop are shared code; the solve
     setup below mirrors planar_solve line for line (gathering quat/ii and
     computing the world inverse inertia at pair granularity is elementwise-
     identical to gathering the per-body result).
 
-    rows [.., 21, N] (_MID_ROWS layout), ia/ib [.., P] i32, pvf [.., P]
-    f32, prev [.., 4K, P] f32 — the key-matched previous pair record from
-    _warm_prev (cand+1 rows then lam rows; the [P, P] key match runs in
-    XLA outside: Mosaic rejects the lane->sublane outer-compare relayout
-    the match build needs), vw0 [.., 6, N].
-    Returns (vwc [.., 7, N] — vel/omega rows + contact-count row,
-    lam [.., 12, P], candf, validf, trigf [.., K, P] f32)."""
+    rows [21, N] (_MID_ROWS layout), ia/ib [P] i32, pvf [P] f32, prev
+    [4K, P] f32 — the key-matched previous pair record from _warm_prev
+    (cand+1 rows then lam rows), vw0 [6, N].
+    Returns (vwc [7, N] — vel/omega rows + contact-count row,
+    lam [12, P], candf, validf, trigf [K, P] f32)."""
     f32 = jnp.float32
     nb = rows.shape[-1]
     p_cap = ia.shape[-1]
@@ -1620,12 +1211,12 @@ def _middle_core(rows, ia, ib, pvf, prev, vw0,
     oh_a = (iota_n == ia[..., None, :]).astype(f32)   # [.., N, P]
     oh_b = (iota_n == ib[..., None, :]).astype(f32)
 
-    ga = _bmm(rows, oh_a)                              # [.., 21, P]
-    gb = _bmm(rows, oh_b)
+    ga = _mm(rows, oh_a)                              # [.., 21, P]
+    gb = _mm(rows, oh_b)
 
     # --- SAT narrowphase (shared core; extra rows past 14 are ignored) --
     (ptx, pty, ptz, nmx, nmy, nmz, dp, vd, cid, _fr, _re, _tg) = _sat_core(
-        ga, gb, pvf, use_stack=use_stack, kinds=kinds
+        ga, gb, pvf, kinds=kinds
     )
     stk = lambda xs: jnp.stack(xs, axis=-2)            # K-list -> [.., K, P]
     point = V3(stk(ptx), stk(pty), stk(ptz))
@@ -1706,7 +1297,7 @@ def _middle_core(rows, ia, ib, pvf, prev, vw0,
     oh2 = jnp.concatenate([oh_a, oh_b], axis=-1)       # [.., N, 2P]
 
     def rel_vel(vw):
-        g = _bmm(vw, oh2)                              # [.., 6, 2P]
+        g = _mm(vw, oh2)                              # [.., 6, 2P]
         sa_ = lambda i: g[..., i:i + 1, :p_cap]
         sb_ = lambda i: g[..., i:i + 1, p_cap:]
         va = V3(sa_(0), sa_(1), sa_(2))
@@ -1725,8 +1316,8 @@ def _middle_core(rows, ia, ib, pvf, prev, vw0,
 
     # Jacobi relaxation 1/max(touch_a, touch_b)
     w = jnp.sum(c_valid.astype(f32), axis=-2, keepdims=True) * pvalid
-    cnt1 = _bmm_nt(w, oh_a) + _bmm_nt(w, oh_b)         # [.., 1, N]
-    gcnt = _bmm(cnt1, oh2)                             # [.., 1, 2P]
+    cnt1 = _mm_nt(w, oh_a) + _mm_nt(w, oh_b)         # [.., 1, N]
+    gcnt = _mm(cnt1, oh2)                             # [.., 1, 2P]
     cnt_a = gcnt[..., :, :p_cap]
     cnt_b = gcnt[..., :, p_cap:]
     touch_a = jnp.where(im_a > 0, cnt_a, 1.0)
@@ -1759,7 +1350,7 @@ def _middle_core(rows, ia, ib, pvf, prev, vw0,
         ],
         axis=-2,
     )                                                  # [.., 6, 2P]
-    vw0 = vw0 + _bmm_nt(upd, oh2)
+    vw0 = vw0 + _mm_nt(upd, oh2)
 
     q = {
         "n": n, "t1": t1, "t2": t2, "a_an": a_an, "a_bn": a_bn,
@@ -1781,151 +1372,6 @@ def _middle_core(rows, ia, ib, pvf, prev, vw0,
         c_valid.astype(f32),
         kb_(trig_ov, shape_kp).astype(f32),
     )
-
-
-def _middle_fleet_pallas(rows, ia, ib, pvf, prev, vw0,
-                         params: SolverParams, kinds=_ALL_KINDS,
-                         interpret=False):
-    """The fused middle as ONE Pallas kernel, grid over 8-env blocks."""
-    from jax.experimental import pallas as plx
-
-    e, s, nb = rows.shape
-    p = ia.shape[-1]
-    eb = int(os.environ.get("SCX_PLANAR_MID_EB", "8"))
-    while eb > 8 and e % eb:
-        eb //= 2
-    if e % eb:
-        eb = e
-    grid = (e // eb,)
-
-    def kernel(rows_ref, ia_ref, ib_ref, pv_ref, prev_ref, vw_ref,
-               vwc_out, lam_out, cand_out, valid_out, trig_out):
-        old = _BARRIERS[0]
-        _BARRIERS[0] = False
-        try:
-            vwc, lam, candf, validf, trigf = _middle_core(
-                rows_ref[...], ia_ref[...], ib_ref[...], pv_ref[...],
-                prev_ref[...], vw_ref[...],
-                params, use_stack=False, kinds=kinds,
-            )
-        finally:
-            _BARRIERS[0] = old
-        vwc_out[...] = vwc
-        lam_out[...] = lam
-        cand_out[...] = candf
-        valid_out[...] = validf
-        trig_out[...] = trigf
-
-    f32 = jnp.float32
-    bs2 = lambda: plx.BlockSpec((eb, p), lambda i: (i, 0))
-    bs3 = lambda d: plx.BlockSpec((eb, d, p), lambda i: (i, 0, 0))
-    out = plx.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            plx.BlockSpec((eb, s, nb), lambda i: (i, 0, 0)),
-            bs2(), bs2(), bs2(),
-            bs3(4 * _K),
-            plx.BlockSpec((eb, 6, nb), lambda i: (i, 0, 0)),
-        ],
-        out_specs=[
-            plx.BlockSpec((eb, 7, nb), lambda i: (i, 0, 0)),
-            bs3(12), bs3(_K), bs3(_K), bs3(_K),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((e, 7, nb), f32),
-            jax.ShapeDtypeStruct((e, 12, p), f32),
-            jax.ShapeDtypeStruct((e, _K, p), f32),
-            jax.ShapeDtypeStruct((e, _K, p), f32),
-            jax.ShapeDtypeStruct((e, _K, p), f32),
-        ],
-        interpret=interpret,
-    )(rows, ia, ib, pvf, prev, vw0)
-    return tuple(out)
-
-
-_MIDDLE_OK: dict = {}
-
-
-def _middle_supported(mkey) -> bool:
-    """One-time Mosaic probe for the fused middle kernel, keyed by the
-    static solver parameters AND the (N, P) shape: VMEM use scales with
-    both (N=512-capacity scenes at eb=8 need 23 MB against the 16 MB
-    scoped limit — measured 2026-08-21), so a fit at the 64x128 headline
-    shape says nothing about a 512-capacity GLB env. A rejected shape
-    falls back to the vmapped XLA primal."""
-    if mkey not in _MIDDLE_OK:
-        params, kinds, nb, p = mkey
-        try:
-            rows = jnp.zeros((8, _MID_ROWS, nb), jnp.float32)
-            pi = jnp.zeros((8, p), jnp.int32)
-            pf = jnp.zeros((8, p), jnp.float32)
-            prev = jnp.zeros((8, 4 * _K, p), jnp.float32)
-            vw = jnp.zeros((8, 6, nb), jnp.float32)
-            jax.jit(
-                lambda *a: _middle_fleet_pallas(
-                    *a, params=params, kinds=kinds
-                )
-            ).lower(rows, pi, pi, pf, prev, vw).compile()
-            _MIDDLE_OK[mkey] = True
-        except Exception as exc:
-            from scx.core.log import warn
-
-            warn(
-                "planar: fused middle kernel rejected at N=%d P=%d (%s); "
-                "using the staged path. %s", nb, p, type(exc).__name__,
-                str(exc)[:200],
-            )
-            _MIDDLE_OK[mkey] = False
-    return _MIDDLE_OK[mkey]
-
-
-_MIDDLE_DISPATCH: dict = {}
-
-
-def _middle_dispatch(params: SolverParams, kinds=_ALL_KINDS):
-    """custom_vmap dispatcher for the fused middle (same pattern as
-    _sat_dispatch / _solve_iterate)."""
-    kinds = tuple(kinds)
-    key = (params, kinds)
-    if key in _MIDDLE_DISPATCH:
-        return _MIDDLE_DISPATCH[key]
-
-    @jax.custom_batching.custom_vmap
-    def mid(rows, ia, ib, pvf, prev, vw0):
-        return _middle_core(rows, ia, ib, pvf, prev, vw0,
-                            params, use_stack=True, kinds=kinds)
-
-    @mid.def_vmap
-    def _rule(axis_size, in_batched, *args):
-        if not all(in_batched):
-            args = tuple(
-                x if bt else jnp.broadcast_to(x[None], (axis_size,) + x.shape)
-                for x, bt in zip(args, in_batched)
-            )
-        use_kernel = (
-            args[0].ndim == 3
-            and args[1].shape[-1] % 128 == 0
-            and args[0].shape[0] % 8 == 0
-            and jax.default_backend() != "cpu"
-            and os.environ.get("SCX_PLANAR_NO_PALLAS", "0") != "1"
-            and os.environ.get("SCX_PLANAR_NO_FUSED", "0") != "1"
-            and _middle_supported(
-                key + (args[0].shape[-1], args[1].shape[-1])
-            )
-        )
-        if use_kernel:
-            out = _middle_fleet_pallas(*args, params=params, kinds=kinds)
-        else:
-            out = jax.vmap(
-                lambda *a: _middle_core(
-                    *a, params=params, use_stack=True, kinds=kinds
-                )
-            )(*args)
-        return out, tuple(True for _ in out)
-
-    _MIDDLE_DISPATCH[key] = mid
-    return _MIDDLE_DISPATCH[key]
 
 
 def _middle_rows(b: PlanarBodies):
@@ -1958,9 +1404,8 @@ def step_planar_cached(b: PlanarBodies, params: SolverParams,
     shape-static; vmap over scenes; scan over substeps with
     (bodies, cache) carry. Returns (bodies, cache, stats).
 
-    The middle (contacts + warm gather + solve) runs through the fused
-    dispatcher — one Pallas kernel per fleet on TPU-class backends, the
-    same formulas staged through XLA elsewhere."""
+    The middle (contacts + warm gather + solve) is _middle_core; under
+    vmap XLA batches it over the fleet."""
     b = planar_integrate_velocities(b, params.dt, params.gravity)
     ia, ib, pair_valid, n_cand = planar_broadphase(b, params.max_pairs)
     ka, kb = _pair_keys(ia, ib, pair_valid, key_id)
@@ -1970,9 +1415,10 @@ def step_planar_cached(b: PlanarBodies, params: SolverParams,
         axis=-2,
     )
     prev = _warm_prev(cache, ka, kb, pair_valid)
-    vwc, lam, candf, validf, trigf = _middle_dispatch(
-        params, params.shape_kinds
-    )(rows, ia, ib, pair_valid.astype(jnp.float32), prev, vw0)
+    vwc, lam, candf, validf, trigf = _middle_core(
+        rows, ia, ib, pair_valid.astype(jnp.float32), prev, vw0,
+        params, tuple(params.shape_kinds),
+    )
     vel = V3(vwc[..., 0, :], vwc[..., 1, :], vwc[..., 2, :])
     omega = V3(vwc[..., 3, :], vwc[..., 4, :], vwc[..., 5, :])
     cnt = vwc[..., 6, :]

@@ -1,13 +1,11 @@
 """Plane-form 3D math: vectors/quaternions as tuples of component planes.
 
-Why this exists (the round-4 physics-headline lesson): on TPU every array's
-last two dims are padded to (8, 128) tiles, so the conventional [..., 3]
-vector layout pays a 16-42x HBM-amplification tax the moment it is
-materialized — and under a vmapped env batch the solver's [E, C, 3]
-constants (re-read every iteration) turned a ~1 ms physics fleet-step into
-264 ms (read-verified 2026-08-20). Storing each COMPONENT as its own plane
-([N] per scene -> [E, N] under vmap) makes every materialized array
-pad-free; the formulas below are the same as scx.core.math3d, just written
+Why this exists: the conventional [..., 3] vector layout gives every
+materialized array a 3-wide minor dimension, which wastes most of each
+memory transaction, and under a vmapped env batch the solver re-reads its
+[E, C, 3] constants every iteration. Storing each COMPONENT as its own
+plane ([N] per scene -> [E, N] under vmap) keeps every materialized array
+dense; the formulas below are the same as scx.core.math3d, just written
 per component.
 
 V3/Q4 are NamedTuples (native pytrees) whose fields are same-shaped planes

@@ -9,18 +9,18 @@ bodies this is one fused VPU pass and beats any tree. Rays broadcast, so
 vmapping a [R,3] bundle of rays costs one pass too (traffic sensors cast all
 their rays at once).
 
-TPU shape note: all per-body math runs in COLUMN form — [N] arrays per
-x/y/z component instead of [N,3] vectors.  A trailing dim of 3 pads to a
-(8,128) vreg tile (42x waste), and under the outer vmaps that stack here
-(wheel x vehicle x env) those pads multiply into the dominant sim cost.
-With columns the body axis is the lane axis, which is what the VPU wants.
+Shape note: all per-body math runs in COLUMN form — [N] arrays per
+x/y/z component instead of [N,3] vectors.  A trailing dim of 3 makes
+every access a strided one, and under the outer vmaps that stack here
+(wheel x vehicle x env) that cost multiplies.  With columns the body axis
+is the minor axis.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from scx.core import struct
 
 from scx.core import math3d as m3
 from scx.physics.rigid import RigidBodies, SHAPE_BOX, SHAPE_SPHERE, SHAPE_CAPSULE
@@ -239,7 +239,7 @@ def capsule_cast(
     """Swept capsule — PhysicsWorld::sweepCapsule parity
     (sc_physics.cpp:740-810: Bullet convexSweepTest of a btCapsuleShape).
 
-    TPU-native approximation: `stations` parallel swept spheres along the
+    Fixed-shape approximation: `stations` parallel swept spheres along the
     capsule core segment (origin + axis*s, s in [-hh, hh]), closest hit
     wins. Exact for face hits and sphere-like contacts; worst-case error at
     a corner is half the station spacing. All stations cast in one vmapped

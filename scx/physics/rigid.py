@@ -1,6 +1,6 @@
 """Rigid body SoA + integration.
 
-The TPU-native replacement for the reference's Bullet wrapper
+This engine's replacement for the reference's Bullet wrapper
 (reference: sc_physics.cpp:210-302 PhysicsWorld) — rigid state as flat arrays,
 semi-implicit Euler integration, Bullet-compatible damping semantics
 (vel *= (1-damping)^dt) and the same defaults (gravity -9.81, static bodies on
@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from scx.core import struct
 
 from scx.core import math3d as m3
 

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from scx.core import struct
 
 from scx.core import math3d as m3
 from scx.physics.rigid import (
@@ -149,8 +149,7 @@ def solve_velocity(bodies: RigidBodies, contacts, params: SolverParams, lam0=Non
 
     iw = inv_inertia_world(bodies)
     # one packed row per body (inv_mass, pos, inv inertia world): each
-    # endpoint costs ONE gathered row (TPU gathers move rows, CLAUDE.md
-    # quirk 8)
+    # endpoint costs ONE gathered row
     setup_rows = jnp.concatenate(
         [bodies.inv_mass[:, None], bodies.pos, iw.reshape(nb, 9)], axis=-1
     )
@@ -185,15 +184,15 @@ def solve_velocity(bodies: RigidBodies, contacts, params: SolverParams, lam0=Non
     k2 = jnp.maximum(eff_mass(t2, a_a2, a_b2), 1e-9)
 
     # pack (vel, omega) into one [N,6] array: per iteration the pair
-    # gathers/scatters are the HBM cost (TPU moves one row per index), so
-    # one 6-wide row beats two 3-wide ones.
+    # gathers/scatters are the memory cost (one transaction per index),
+    # so one 6-wide row beats two 3-wide ones.
     #
-    # For small scenes the gather/scatter becomes a ONE-HOT MATMUL on the
-    # MXU instead: A [C,N] has a 1 at (c, ia[c]) for valid contacts, so
+    # For small scenes the gather/scatter becomes a ONE-HOT MATMUL
+    # instead: A [C,N] has a 1 at (c, ia[c]) for valid contacts, so
     # A @ vw gathers and A.T @ upd scatter-adds. Under a vmapped env batch
     # XLA lowers batched row scatters poorly (same pathology as the render
     # binning, pipeline.py:489), while batched matmuls are native — the RL
-    # fleet's solve drops from scatter-bound to MXU-trivial. Gated on
+    # fleet's solve stops being scatter-bound. Gated on
     # C*N so one huge scene (sandbox at 4096 capacity) keeps row ops.
     use_mm = C * nb <= _ONE_HOT_LIMIT
     if use_mm:

@@ -1,4 +1,4 @@
-"""Raycast vehicle — TPU-native port of the btRaycastVehicle semantics the
+"""Raycast vehicle — array port of the btRaycastVehicle semantics the
 reference tunes against.
 
 The reference wraps Bullet's raycast vehicle with specific constants and
@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from scx.core import struct
 
 from scx.core import math3d as m3
 from scx.physics.rigid import RigidBodies, inv_inertia_world
@@ -285,10 +285,12 @@ def vehicle_forces(
     ray_len = rest + radius
 
     def per_wheel(conn, steer):
-        hard = pos + r3 @ conn
+        hard = pos + jnp.matmul(r3, conn, precision=m3.PRECISION)
         # steering rotates the wheel basis about the suspension axis
         sq = m3.quat_from_axis_angle(up_w, steer)
-        axle_w = m3.quat_rotate(sq, r3 @ jnp.asarray([-1.0, 0.0, 0.0]))
+        axle_w = m3.quat_rotate(
+            sq, jnp.matmul(r3, jnp.asarray([-1.0, 0.0, 0.0]), precision=m3.PRECISION)
+        )
         hit = raycast(bodies, hard, down_w, ray_len, exclude=chassis)
         return hard, axle_w, hit.t, hit.normal, hit.hit
 

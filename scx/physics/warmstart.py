@@ -3,7 +3,7 @@
 Bullet's btPersistentManifold caches contact points and their accumulated
 impulses between steps and warm-starts the sequential-impulse solver with
 them (the reference gets this for free from btDiscreteDynamicsWorld,
-sc_physics.cpp:283-302). The TPU equivalent is a fixed-shape cache keyed by
+sc_physics.cpp:283-302). The equivalent here is a fixed-shape cache keyed by
 pair identity:
 
   * pairs are keyed by the (key_a, key_b) identity of the two bodies — by
@@ -13,8 +13,8 @@ pair identity:
     migrates entity rows between shards and rebuilds ghost rows every step,
     so row indices churn while entity uids don't (scx/parallel/bigscene.py).
   * matching last step's pairs to this step's is a [P,P] equality one-hot
-    followed by a [P,P]@[P,K*3] matmul — rides the MXU instead of the
-    gather-bound searchsorted (CLAUDE.md quirk #4). Keys are unique (one
+    followed by a [P,P]@[P,K*3] matmul instead of a searchsorted over
+    sorted keys. Keys are unique (one
     row per pair), so each one-hot row has at most a single 1 — the matmul
     IS the gather.
   * within a pair, contacts keep their candidate-slot id (face-A corner k /
@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from scx.core import struct
 
 from scx.physics.contacts import MAX_CONTACTS_PER_PAIR
 
@@ -85,9 +85,9 @@ def gather_warm_impulses(cache: ContactCache, ia, ib, pair_valid, cand,
     p = ia.shape[0]
     k = MAX_CONTACTS_PER_PAIR
     ka, kb = _pair_keys(ia, ib, pair_valid, key_id)
-    # pair match as a one-hot [P,P] matmul: binary-searching a sorted key
-    # column (searchsorted) is gather-bound on TPU (CLAUDE.md quirk #4); an
-    # equality matrix plus a [P,P]@[P,K*3] matmul rides the MXU instead.
+    # pair match as a one-hot [P,P] matmul: an equality matrix plus a
+    # [P,P]@[P,K*3] matmul instead of binary-searching a sorted key
+    # column. Whether a sort beats it on the GPU is not measured yet.
     onehot = (
         (ka[:, None] == cache.key_a[None, :])
         & (kb[:, None] == cache.key_b[None, :])

@@ -105,9 +105,8 @@ def write_back(state: EntityState, bodies: RigidBodies) -> EntityState:
 def vehicle_slots(state: EntityState, max_vehicles: int = MAX_VEHICLES):
     """Fixed-capacity list of vehicle entity indices (lowest-first).
 
-    top_k on (n - idx) scores instead of a full sort: the batched sort was
-    ~26 ms/step for the 1024-env RL fleet (10% of the physics stage in the
-    device trace); top_k of 32 from a few hundred lanes is noise."""
+    top_k on (n - idx) scores instead of a full batched sort: top_k of 32
+    from a few hundred lanes is cheap."""
     n = state.capacity
     is_vehicle = state.alive & ((state.components & C_VEHICLE) != 0)
     idx = jnp.arange(n, dtype=jnp.int32)
@@ -211,10 +210,9 @@ def physics_sync_step(
     bodies = bodies_from_state(state)
     state, bodies, v_idx = vehicle_prestep(state, bodies, dt, max_vehicles)
 
-    # plane-layout solver core: the conventional [.., 3] layout pays
-    # (8, 128) tile padding on every materialized array under an env vmap
-    # (266.7 vs 31.4 ms/fleet-step at 1024x64, 2026-08-20); the layout
-    # conversions are [N]-level elementwise and fuse into the consumers.
+    # plane-layout solver core (scx.physics.planar: no 3-wide minor dims
+    # on materialized arrays under an env vmap); the layout conversions
+    # are [N]-level elementwise and fuse into the consumers.
     # `cache` is a PlanarCache (scx.physics.planar.empty_planar_cache).
     pb, cache, pstats = step_planar_cached(
         planar_from_rigid(bodies), params, cache, key_id

@@ -7,7 +7,7 @@ perspective_rh_zo with Vulkan Y-flip (sc_ecs.cpp:213-272, sc_math.cpp:209-232).
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from scx.core import struct
 
 from scx.core import math3d as m3
 
@@ -40,7 +40,7 @@ def camera_view_proj_from_pose(pos, quat, aspect, params: CameraParams = CameraP
     view = jnp.eye(4)
     rt = r3.T
     view = view.at[0:3, 0:3].set(rt)
-    view = view.at[0:3, 3].set(-rt @ pos)
+    view = view.at[0:3, 3].set(-jnp.matmul(rt, pos, precision=m3.PRECISION))
     proj = m3.mat4_perspective_rh_zo(
         jnp.radians(params.fov_y_deg), aspect, params.near_z, params.far_z,
         flip_y=params.flip_y,

@@ -2,7 +2,7 @@
 frame on device.
 
 The reference draws its Debug Overlay with ImGui into the swapchain image
-(sc_imgui.cpp:186-629); the TPU renderer's framebuffer is an HBM array, so
+(sc_imgui.cpp:186-629); this renderer's framebuffer is a device array, so
 the overlay becomes one masked blend.  Glyphs cover what the telemetry
 overlay prints (scx.telemetry.snapshots.format_overlay): digits, uppercase
 letters (input is uppercased), and punctuation.  Unknown glyphs render as

@@ -13,7 +13,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from scx.core import struct
 
 MESH_CUBE = 0
 MESH_TRIANGLE = 1
@@ -31,8 +31,8 @@ class MeshPool:
     mesh_bounds_max: jax.Array # [M,3]
     # per-TRIANGLE packed vertex rows [T, 24] (3 verts x 8 fields): the
     # frame setup gathers ONE row per triangle instead of tris + 3 vertex
-    # rows (TPU gathers move rows — 5 -> 2 gathers per expanded triangle,
-    # the single largest render-prep cost at RL fleet sizes)
+    # rows (5 -> 2 gathers per expanded triangle, the largest render-prep
+    # cost at RL fleet sizes)
     tri_vert_rows: jax.Array   # [T, 24] f32
 
     @property

@@ -1,21 +1,19 @@
 """Frame pipeline: draw expansion -> clip transform -> bin -> raster -> shade.
 
-TPU-native replacement for the Vulkan draw path (reference
+The engine's replacement for the Vulkan draw path (reference
 sc_vk.cpp:1711-1958 beginFrame: sort draws, bind pipelines, vkCmdDrawIndexed).
 Here a frame is data, not commands:
 
   1. expand_draws: the draw list (meshId, materialId, model — the reference's
      DrawItem, sc_ecs.h:160-170) becomes a fixed-capacity triangle soup via a
      cumsum/searchsorted gather over the baked mesh pool.
-  2. setup_triangles: model+viewProj transform (one MXU matmul), near-plane
+  2. setup_triangles: model+viewProj transform (one matmul), near-plane
      and backface cull, viewport mapping, perspective-correct attribute
      premultiplication.
-  3. bin_triangles: each triangle emits (tile, tri) pairs for the screen
-     tiles its AABB covers; ONE sort orders emissions by tile; per-tile runs
-     are gathered into a padded [tiles, K] setup array the Pallas kernel can
-     stream sequentially (no random access in-kernel).
-  4. rasterize (scx.ops.raster): per-tile Pallas kernel -> G-buffer
-     (depth + vertex color + uv + material id).
+  3. bin_triangles / bin_clusters: per screen tile, the list of triangles
+     (or 32-triangle clusters, scx.ops.raster_clusters) its AABB covers.
+  4. rasterize (scx.ops.raster): Pallas kernel, one program per screen
+     sub-tile -> G-buffer (depth + vertex color + uv + material id).
   5. shade: deferred texturing in XLA — material table lookup + bilinear
      atlas sample x vertex color (the reference's textured pipeline,
      assets/shaders/mesh_tex.frag) — gathers belong in XLA, not the kernel.
@@ -27,7 +25,7 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from scx.core import struct
 
 from scx.core import math3d as m3
 from scx.render.mesh import MeshPool
@@ -62,18 +60,23 @@ class DrawList:
 class RasterParams:
     width: int = struct.field(pytree_node=False, default=1280)
     height: int = struct.field(pytree_node=False, default=720)
-    # 64x128 tiles measured fastest at 720p (sweep in
-    # benchmarks/bench_raster_sweep.py: 5.4ms vs 8.4ms at 16x128 — fewer
-    # cluster-tile pairs beat smaller wasted lattice)
+    # binning tile: the screen region one triangle/cluster list covers.
+    # Larger tiles mean fewer (tile, cluster) pairs to bin; the raster
+    # kernel splits each tile into register-sized sub-tiles below.
     tile_h: int = struct.field(pytree_node=False, default=64)
     tile_w: int = struct.field(pytree_node=False, default=128)
+    # raster program sub-tile (powers of two, fitted to divide the bin
+    # tile) and Triton warps per program
+    sub_h: int = struct.field(pytree_node=False, default=32)
+    sub_w: int = struct.field(pytree_node=False, default=32)
+    num_warps: int = struct.field(pytree_node=False, default=4)
     max_tris: int = struct.field(pytree_node=False, default=131072)
     max_tris_per_tile: int = struct.field(pytree_node=False, default=256)
     emission_factor: int = struct.field(pytree_node=False, default=4)
     cull_backface: bool = struct.field(pytree_node=False, default=True)
     min_area2 : float = struct.field(pytree_node=False, default=1e-6)
     interpret: bool = struct.field(pytree_node=False, default=False)
-    # cluster path: 64-tri meshlet binning + DMA kernel (the fast path)
+    # cluster path: 32-triangle meshlet binning (large frames)
     use_clusters: bool = struct.field(pytree_node=False, default=True)
     max_clusters_per_tile: int = struct.field(pytree_node=False, default=64)
     # front-to-back draw ordering feeds the kernel's hierarchical-z skip
@@ -155,7 +158,7 @@ def expand_draws(draws: DrawList, pool: MeshPool, max_tris: int):
     total = cum[-1]
     starts = cum - counts
     e = jnp.arange(max_tris, dtype=jnp.int32)
-    # draw boundaries by scatter+cumsum (searchsorted is gather-bound on TPU)
+    # draw boundaries by scatter+cumsum (no searchsorted)
     marks = jnp.zeros(max_tris, jnp.int32).at[starts].add(1, mode="drop")
     draw_idx = jnp.minimum(jnp.cumsum(marks) - 1, counts.shape[0] - 1)
     draw_idx = jnp.maximum(draw_idx, 0)
@@ -174,8 +177,8 @@ def _near_clip_cols(cw, pos_cols, attr_cols, live, extra_cap: int, eps: float):
 
     cw: [w0, w1, w2] clip-w columns ([T] each); pos_cols: per-vertex lists of
     (x, y, z) columns; attr_cols: per-vertex lists of attribute columns.
-    Everything stays a flat [T] array — packed [T,3,4] tensors tile-pad up
-    to 42x on TPU and OOM at RL batch sizes.
+    Everything stays a flat [T] array — no packed [T,3,4] tensors with tiny
+    minor dims.
 
     Crossing triangles are clipped: the slot is replaced by the first
     clipped triangle; quad second-halves are recovered by binary search
@@ -247,7 +250,7 @@ def _near_clip_cols(cw, pos_cols, attr_cols, live, extra_cap: int, eps: float):
     live1 = keep | one_out | two_out
 
     # quad second-half sources by scatter-rank recovery (the k-th one_out
-    # tri writes its index into slot k; searchsorted is gather-bound on TPU)
+    # tri writes its index into slot k; no searchsorted)
     cum = jnp.cumsum(one_out.astype(jnp.int32))
     rank = jnp.where(one_out, cum - 1, extra_cap)  # non-crossing -> dropped
     srcs = (
@@ -257,7 +260,7 @@ def _near_clip_cols(cw, pos_cols, attr_cols, live, extra_cap: int, eps: float):
     )
     have = jnp.arange(1, extra_cap + 1, dtype=jnp.int32) <= cum[-1]
     # gather all 3x9 extra columns as ONE row-gather of a packed matrix
-    # (TPU gathers move rows: 27 column-gathers cost 27x this)
+    # (instead of 27 column gathers)
     tri2 = [i01, u2, i20]
     packed = jnp.stack([col for v in range(3) for col in tri2[v]], axis=-1)
     rows = packed[srcs]  # [extra_cap, 3*nc]
@@ -279,9 +282,8 @@ def setup_triangles(
 ):
     """Build the [T, N_FIELDS] screen-space plane-setup buffer.
 
-    Internally everything is flat [T] columns — no [T,3,k] tensors (their
-    (8,128) tile padding explodes 16-42x on TPU, catastrophically so under a
-    vmapped env batch).
+    Internally everything is flat [T] columns — no [T,3,k] tensors with
+    tiny minor dims, which cost most under a vmapped env batch.
     """
     pad = params.effective_clip_extra
     usable = params.max_tris - pad
@@ -291,14 +293,13 @@ def setup_triangles(
     def grow(col, fill=0.0):
         return jnp.concatenate([col, jnp.full((pad,), fill, col.dtype)])
 
-    # Gathers are the cost here (TPU gathers move ROWS — one sublane per
-    # gathered index), so EVERY per-draw quantity a triangle needs packs
+    # Gathers are the cost here (one memory transaction per gathered
+    # index), so EVERY per-draw quantity a triangle needs packs
     # into ONE [D, 19] row (start, first_tri, material, mvp x16) gathered
     # once per triangle, and the pool pre-packs each triangle's three
     # vertex rows into ONE 24-wide row (MeshPool.tri_vert_rows): geometry
-    # expansion is exactly TWO row gathers per triangle.  (The unpacked
-    # form — per_draw, mvp rows and material ids gathered separately —
-    # was 3 of the 5 hottest ops of the RL fleet step at 1024 envs.)
+    # expansion is exactly TWO row gathers per triangle instead of
+    # gathering per_draw, mvp rows and material ids separately.
     # Integer columns ride the f32 row exactly (values < 2^24).
     tri_counts = jnp.where(
         draws.valid, pool.mesh_tri_count[draws.mesh_id], 0
@@ -469,9 +470,9 @@ def bin_triangles(setup, aabb, valid, params: RasterParams):
 
     The k-th triangle of tile t is the first tri whose running overlap count
     for t reaches k+1 — a binary search over a monotone row.  One cumsum and
-    K searches per tile replace the global emission sort (which dominated
-    frame time on TPU).  Order within a tile = triangle index order, which is
-    draw order — same as the reference's sorted submission semantics.
+    K searches per tile replace a global emission sort.  Order within a tile
+    = triangle index order, which is draw order — same as the reference's
+    sorted submission semantics.
 
     Returns (binned [n_tiles, K, N_FIELDS], counts [n_tiles]).
     """
@@ -495,7 +496,7 @@ def bin_triangles(setup, aabb, valid, params: RasterParams):
     rank = jnp.cumsum(overlap.astype(jnp.int32), axis=1)  # [tiles, T] monotone
     counts = rank[:, -1]
 
-    # index recovery by scatter (searchsorted is gather-bound on TPU):
+    # index recovery by scatter (no searchsorted):
     # each overlapping (tile, tri) writes tri into slot rank-1; ranks are
     # unique per tile so every slot has exactly one writer.
     k = params.max_tris_per_tile
@@ -526,9 +527,8 @@ def bin_triangles_batched(setup, aabb, valid, params: RasterParams):
     -> (binned [E,n_tiles,K,F], counts [E,n_tiles]).
 
     A `vmap` of `bin_triangles` lowers its rank-recovery scatter to a
-    batched scatter that XLA executes ~50x slower than the single-scene
-    one; folding the env axis into the tile axis keeps it a plain 2D
-    scatter (one scatter for the whole fleet)."""
+    batched scatter; here the index recovery is a block-rank gather over
+    the whole fleet instead (below)."""
     e, t = valid.shape
     ntx, nty = params.tiles_x, params.tiles_y
     n_tiles = params.n_tiles
@@ -555,9 +555,8 @@ def bin_triangles_batched(setup, aabb, valid, params: RasterParams):
     # index recovery by BLOCK-RANK: the k-th triangle of a tile is located
     # by (a) a [K, B] compare-sum over the per-128-lane-block exclusive
     # rank bases, then (b) ONE gathered 128-lane block word row + argmax.
-    # The previous fleet-folded 2D scatter was the single hottest op of
-    # the RL step at 1024 envs (464 ms); the gather here moves K rows per
-    # tile instead of scattering T elements. Same output, exact.
+    # The gather moves K rows per tile instead of scattering T elements.
+    # Same output as bin_triangles, exact.
     r = e * n_tiles
     w = 128
     pad_t = (-t) % w
@@ -610,9 +609,8 @@ class MipTextures:
     """Texture pool with packed mip chains: quads [NT, FLAT, 12] where FLAT
     packs square power-of-two levels base-first (scx.assets.textures.mip_layout)
     and each row holds the texel's clamped 2x2 bilinear footprint
-    (textures.build_mip_quads).  TPU gathers cost one row per index, so the
-    redundant footprint makes exact bilinear+mips ONE gather per pixel
-    instead of four (~5 ms vs ~20 ms at 720p)."""
+    (textures.build_mip_quads).  The redundant footprint makes exact
+    bilinear+mips ONE gather of a 12-wide row per pixel instead of four."""
 
     quads: jax.Array  # [NT, FLAT, 12] f32
     size: int = struct.field(pytree_node=False, default=128)
@@ -635,10 +633,11 @@ class MipTextures:
 def _uv_mip_level(uv, covered, base_size: int, n_levels: int):
     """Per-pixel mip level from screen-space UV finite differences.
 
-    The GPU gets duv/dxy from 2x2 quad shading for free; deferred on TPU we
-    difference the uv G-buffer.  Using the MIN-magnitude of forward/backward
-    differences per axis keeps triangle/material boundaries (where the
-    difference is garbage) from blowing the level up — interiors are exact.
+    A hardware rasterizer gets duv/dxy from 2x2 quad shading for free;
+    deferred shading here differences the uv G-buffer.  Using the MIN-
+    magnitude of forward/backward differences per axis keeps
+    triangle/material boundaries (where the difference is garbage) from
+    blowing the level up — interiors are exact.
     """
     up = uv * base_size  # texel coords at level 0
 
@@ -812,25 +811,24 @@ def render_frame(
     return _raster_and_shade(setup, aabb, valid, params, materials, textures)
 
 
-def render_frame_baked(
+def setup_frame_baked(
     baked,
     dyn_draws: DrawList,
     pool: MeshPool,
     view_proj,
     params: RasterParams,
     dyn_params: RasterParams,
-    materials: Materials | None = None,
-    textures=None,
 ):
-    """Full frame from pre-baked static geometry + a dynamic DrawList.
+    """Setup buffer of a frame from pre-baked static geometry + a dynamic
+    DrawList -> (setup, aabb, valid, frame_params).
 
     `baked` is scx.render.staticbake world-space columns ([26, T_s],
     Morton-ordered at bake time so cluster meshlets stay spatially tight
     without the per-frame screen-space draw sort); statics project by ONE
     viewProj multiply, only `dyn_draws` (vehicles, traffic, movers) pays
     the full gather+transform setup. `params` is the frame's RasterParams
-    (its max_tris is overridden by the combined width); `dyn_params`
-    sizes the dynamic setup buffer.
+    (its max_tris is overridden by the combined width, see frame_params);
+    `dyn_params` sizes the dynamic setup buffer.
     """
     from scx.render import staticbake as sb
 
@@ -852,7 +850,24 @@ def render_frame_baked(
     setup = jnp.concatenate([s_setup, d_setup], axis=0)
     aabb = jnp.concatenate([s_aabb, d_aabb], axis=0)
     valid = jnp.concatenate([s_valid, d_valid], axis=0)
-    frame = params.replace(max_tris=setup.shape[0])
+    return setup, aabb, valid, params.replace(max_tris=setup.shape[0])
+
+
+def render_frame_baked(
+    baked,
+    dyn_draws: DrawList,
+    pool: MeshPool,
+    view_proj,
+    params: RasterParams,
+    dyn_params: RasterParams,
+    materials: Materials | None = None,
+    textures=None,
+):
+    """Full frame from pre-baked static geometry + a dynamic DrawList
+    (see setup_frame_baked): returns (rgb [H,W,3], gbuffer, stats)."""
+    setup, aabb, valid, frame = setup_frame_baked(
+        baked, dyn_draws, pool, view_proj, params, dyn_params
+    )
     return _raster_and_shade(setup, aabb, valid, frame, materials, textures)
 
 
@@ -914,10 +929,10 @@ def raster_gbuffer_batched(setup, aabb, valid, params):
     """Env-batched bin + rasterize -> (gbuffer, stats); setup [E, T, F].
 
     Cluster path (params.use_clusters): vmapped meshlet bounds/compaction/
-    binning feed the env-batched DMA kernel (rasterize_clusters_batched) —
-    binning cost scales with clusters (T/32) instead of triangles, which is
-    what lets RL observations carry real GLB scenes (VERDICT r2 item 3).
-    Triangle path otherwise (tiny scenes / kernels without DMA)."""
+    binning feed the env-batched cluster kernel (rasterize_clusters_batched)
+    — binning cost scales with clusters (T/32) instead of triangles, which
+    is what lets RL observations carry large GLB scenes. Triangle path
+    otherwise (small scenes, small frames)."""
     from scx.ops import raster as raster_ops
     from scx.ops import raster_clusters as rc
 
@@ -937,7 +952,8 @@ def raster_gbuffer_batched(setup, aabb, valid, params):
 
         cl_ids, cl_counts, cl_zmin, dropped = jax.vmap(prep)(setup, aabb, valid)
         gbuffer = rc.rasterize_clusters_batched(
-            setup, cl_ids, cl_counts, params, kc, cl_zmin=cl_zmin
+            setup, cl_ids, cl_counts, params, kc,
+            cl_zmin=cl_zmin if params.sort_draws else None,
         )
         occupancy, cap = cl_counts, kc
         cluster_drop = jnp.sum(dropped)
@@ -972,10 +988,11 @@ def _raster_and_shade(setup, aabb, valid, params, materials, textures):
             c_aabb, c_valid, params, params.max_clusters_per_tile,
             cl_zmin=zsort,
         )
-        cl_ids = order[cl_ids]  # back to original cluster ids for the DMA
+        cl_ids = order[cl_ids]  # back to original cluster ids
+        # the kernel's hierarchical-z exit is exact only on near-to-far lists
         gbuffer = rc.rasterize_clusters(
             setup, cl_ids, cl_counts, params, params.max_clusters_per_tile,
-            cl_zmin=cl_zmin,
+            cl_zmin=cl_zmin if params.sort_draws else None,
         )
         occupancy = cl_counts
         overflow_cap = params.max_clusters_per_tile

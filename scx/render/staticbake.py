@@ -29,8 +29,8 @@ locality replacing the per-frame screen-space draw sort
 (pipeline.sort_draws_spatial).
 
 The reference has no analogue (the GPU re-transforms every vertex every
-frame, sc_vk.cpp:1909 push-constant model matrix); on TPU the HBM read of
-baked columns is ~100x cheaper than the gather+transform it replaces.
+frame, sc_vk.cpp:1909 push-constant model matrix); here a streaming read
+of baked columns replaces the per-triangle gather+transform.
 """
 
 from __future__ import annotations

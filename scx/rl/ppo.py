@@ -1,8 +1,8 @@
 """Clipped-surrogate PPO over the batched city envs, fully on device.
 
 The reference engine has no training story (SURVEY §2 parallelism item 6:
-ML-style strategies absent); this module is the TPU-native capability the
-rebuild adds on top of parity.  Shape of the thing:
+ML-style strategies absent); this module is the capability the rebuild
+adds on top of parity.  Shape of the thing:
 
   * collection: `CityRLEnv.make_trajectory_rollout` scans the FULL engine
     step (physics + traffic + raster) with the actor-critic inline — raw
@@ -74,7 +74,7 @@ def _update_epochs(params, opt_state, flat, apply, opt, cfg: PPOConfig,
                    key, axis):
     """cfg.epochs passes of cfg.minibatches clipped steps over the flat
     [B, ...] rows, as a nested scan (one XLA program; the minibatch gather
-    is a [mb]-row gather per step — rows, not elements, per the TPU budget).
+    is a [mb]-row gather per step — rows, not elements).
     """
     import optax
 
@@ -215,7 +215,7 @@ def make_ppo_train_step(
         # are small and callers may keep snapshots for eval/checkpoints.
         # place() COPIES here: the documented pattern is
         # `batch = place(env.state)`, and donating env.state's own buffers
-        # would delete them under the env's feet on TPU (the sharded
+        # would delete them under the env's feet (the sharded
         # place() already copies via device_put-with-sharding).
         train_step = jax.jit(
             partial(local, axis=None), donate_argnums=(2, 3)

@@ -1,7 +1,7 @@
 """Struct-of-arrays entity state — the functional mirror of the reference ECS.
 
 The reference uses generational entity IDs + sparse-set component pools
-(reference: sc_ecs.h:14-34, 199-277).  On TPU the same capability surface is a
+(reference: sc_ecs.h:14-34, 199-277).  Here the same capability surface is a
 fixed-capacity SoA pytree with an alive mask and per-slot generation counters:
 
   * create  -> claim the first free slot (masked argmin), bump nothing
@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from scx.core import struct
 
 # body types (sc_physics.h:30-35)
 BODY_NONE = -1

@@ -1,8 +1,8 @@
-"""Device-level tracing via jax.profiler — the TPU-native half of the
+"""Device-level tracing via jax.profiler — the device half of the
 profiling story (reference: QPC scopes + top-5 snapshot, sc_time.cpp:52-122;
 host-side scope parity lives in scx.core.timing).
 
-The reference's scopes can only see host wall time.  On TPU the host loop
+The reference's scopes can only see host wall time.  Here the host loop
 is a thin dispatcher and the truth lives in the device trace: XLA fusion
 spans, Pallas kernel times, transfer gaps.  `start_trace`/`stop_trace`
 capture a TensorBoard/Perfetto trace, and `annotate` brackets host spans

@@ -66,9 +66,8 @@ def traffic_ai_update(
     # instead of every capacity lane (the reference iterates agents, not
     # entities — sc_traffic_ai.cpp:262).  The LOD system caps live agents
     # at cfg.max_vehicles_total, so A = cap + margin loses nobody; lanes,
-    # sensor rays and the clearance sweep shrink capacity/A-fold (at 512
-    # capacity with 13 agents the full-lane AI stage was 178 ms/step for
-    # a 1024-env fleet).  A == capacity keeps the identity layout.
+    # sensor rays and the clearance sweep shrink capacity/A-fold.
+    # A == capacity keeps the identity layout.
     a_cap = min(n, int(cfg.max_vehicles_total) + 8)
     if a_cap < n:
         lane_idx = jnp.arange(n, dtype=jnp.int32)

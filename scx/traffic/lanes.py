@@ -21,7 +21,7 @@ from dataclasses import dataclass, field
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from scx.core import struct
 
 from scx.core import math3d as m3
 
@@ -275,8 +275,8 @@ class LaneGraphBuilder:
 def nearest_lane(lanes: LaneArrays, pos):
     """Closest point over all active segments (sc_traffic_lanes.cpp:239-279).
 
-    pos: [3]; returns (lane_id, s, dist).  Column form: under an
-    agents-vmap a [N,Ls,3] temporary pads its trailing dim 42x on TPU.
+    pos: [3]; returns (lane_id, s, dist).  Column form: no [N,Ls,3]
+    temporary with a 3-wide minor dim under an agents-vmap.
     """
     a = lanes.node_pos[lanes.seg_start]            # [Ls,3]
     ax, ay, az = a[:, 0], a[:, 1], a[:, 2]
@@ -356,8 +356,7 @@ def advance_along_lane(lanes: LaneArrays, lane_id, s, distance, max_hops: int = 
     Returns (lane_id, s, pos, dir, ok). Fixed max_hops lax.scan, traceable.
     """
     # one packed row per segment: (active, len, end, dir.xyz) — each hop
-    # fetches ONE row per agent instead of six element gathers (TPU gathers
-    # cost one row per index)
+    # fetches ONE row per agent instead of six element gathers
     seg_rows = jnp.stack(
         [
             lanes.seg_active.astype(jnp.float32),
@@ -403,8 +402,7 @@ def advance_along_lane(lanes: LaneArrays, lane_id, s, distance, max_hops: int = 
         # while_loop instead of a fixed-hop scan: under the agent/env vmaps
         # JAX batches the loop to "iterate while ANY lane is pending", so
         # the fleet pays for the DEEPEST walk, not max_hops — most agents
-        # finish in 1 hop (the two 8-hop walks were ~85 ms/step each at
-        # 1024 envs, ~90% of the traffic-AI stage in the device trace).
+        # finish in 1 hop.
         _, _, _, done, _, it = carry
         return (~done) & (it < max_hops)
 

@@ -6,12 +6,12 @@ DrawItems for visible entities under a max-draws budget
 (sc_world_partition.cpp:1286-1359).  Here both are single fused array ops —
 the parallel-for IS the array.
 
-TPU shape note: all per-entity matrix math runs in COLUMN form — one [N]
-array per world-matrix entry instead of [N,4,4] tensors.  A [N,4,4] value
-pads each matrix to an (8,128) vreg tile (64x waste), and quat_to_mat3's
-[N,3,3] is just as bad; with 12 affine columns the entity axis is the lane
-axis.  The [N,4,4] tensor is assembled exactly once at the end (the
-DrawList/raster interface), not threaded through the math.
+Shape note: all per-entity matrix math runs in COLUMN form — one [N]
+array per world-matrix entry instead of [N,4,4] tensors, whose tiny minor
+dims make every access strided (quat_to_mat3's [N,3,3] likewise); with
+12 affine columns the entity axis is the minor axis.  The [N,4,4] tensor is
+assembled exactly once at the end (the DrawList/raster interface), not
+threaded through the math.
 """
 
 from __future__ import annotations

@@ -14,7 +14,7 @@ records into the device EntityState with a single masked scatter — entity
 capacity is fixed, slots are tracked host-side so no device readback is
 needed in the frame loop.
 
-The TPU twist: spawning/despawning never reshapes device arrays — activation
+The device twist: spawning/despawning never reshapes device arrays — activation
 is `spawn_entities` at precomputed slots, despawn is a masked destroy, and
 the jitted step never recompiles as the world streams.
 """

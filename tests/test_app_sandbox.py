@@ -116,7 +116,7 @@ def test_physics_telemetry_in_frame(sandbox):
 
 def test_state_health_monitor_flags_nan(sandbox):
     """SURVEY §5.3: a blown-up entity state is surfaced (and rate-limit
-    warned), the TPU-shape analogue of the reference's desync detector."""
+    warned), this engine's analogue of the reference's desync detector."""
     import jax.numpy as jnp
 
     rgb, tel = sandbox.frame()

@@ -1,8 +1,7 @@
-"""Adaptive launch chunking (scx.core.launch) — watchdog-safety model.
+"""Adaptive launch chunking (scx.core.launch) — launch-length bound.
 
-The real failure mode this guards (CLAUDE.md quirk 9): a fixed chunk
-constant calibrated on a fast box produces a >60 s launch on a slow box
-and the TPU worker is killed. These tests simulate machines of various
+A fixed chunk constant calibrated on a fast machine gives much longer
+launches on a slow one. These tests simulate machines of various
 speeds (including a 10x-slow one) and assert the controller never sizes
 a launch whose simulated duration exceeds the hard bound.
 """
@@ -38,8 +37,8 @@ def test_first_launch_is_conservative():
 
 
 def test_slow_machine_never_trips_watchdog():
-    # the round-2 scenario: driver box 4x slower than the dev box the
-    # constant was calibrated on; also try 10x. Calibration point: 4096
+    # a machine 4x slower than the one the constant was calibrated on;
+    # also try 10x. Calibration point: 4096
     # envs x 4 steps ~ 28s on the dev box => ~1.7e-6 s/env-step.
     for slowdown in (1.0, 4.0, 10.0):
         per = 1.7e-6 * slowdown
@@ -68,7 +67,7 @@ def test_slowdown_mid_run_adopted_immediately():
         s = ch.chunk_steps(n, 10_000)
         ch.observe(n, s, 1e-7 * n * s)
     big = ch.chunk_steps(n, 10_000)
-    # machine suddenly 100x slower (e.g. co-resident remote compile)
+    # machine suddenly 100x slower (e.g. a co-resident process)
     ch.observe(n, big, 1e-5 * n * big)
     nxt = ch.chunk_steps(n, 10_000)
     # next launch must be sized off the NEW slower estimate

@@ -52,8 +52,8 @@ def test_dryrun_multichip_bootstraps_without_conftest():
     )
     runner = (
         "import jax\n"
-        # single-device CPU process (like the driver's single TPU chip,
-        # without touching the real chip from the test suite)
+        # single-device CPU process (like a one-card host, without
+        # touching a real card from the test suite)
         "jax.config.update('jax_platforms', 'cpu')\n"
         "import __graft_entry__ as g\n"
         "assert len(jax.devices()) < 8, 'expected a single-device process'\n"

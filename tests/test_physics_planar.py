@@ -294,101 +294,88 @@ def _fleet_sat_inputs(n_envs, pairs=128):
     return jnp.stack(gas), jnp.stack(gbs), jnp.stack(pvs)
 
 
-@pytest.mark.parametrize("n_envs", [8, 128])
-def test_sat_fleet_pallas_interpret_matches_ref(n_envs):
-    """The Pallas fleet SAT kernel (the on-TPU bench/RL/sandbox path,
-    never otherwise reached on the CPU test backend) matches the vmapped
-    XLA reference bit-for-bit on the discrete outputs and tightly on the
-    float planes — at both grid blockings (eb=8 and eb=128)."""
-    ga, gb, pvf = _fleet_sat_inputs(n_envs)
-    ref = jax.vmap(pp._sat_ref)(ga, gb, pvf)
-    ker = pp._sat_fleet_pallas(ga, gb, pvf, interpret=True)
-    assert len(ref) == len(ker) == 12
+def _assert_sat_outputs_agree(got, ref, min_live):
+    """SAT output contract between two float graphs of the same formulas:
+    they may only disagree about GRAZE contacts — |depth| ~ 1e-7 sites
+    where float association lands the SAT depth on the other side of zero.
+    A graze carries ~zero impulse; anything deeper must agree exactly in
+    validity and candidate id."""
+    assert len(ref) == len(got) == 12
     vr = np.asarray(ref[7]) > 0.5
-    vk = np.asarray(ker[7]) > 0.5
-    # Contract (measured, 128-env mixed fleet): the two paths may only
-    # disagree about GRAZE contacts — |depth| ~ 1e-7 sites where the
-    # barrier-free kernel float association lands the SAT depth on the
-    # other side of zero. A graze carries ~zero impulse; anything deeper
-    # must agree exactly in validity and candidate id.
-    dis = vr != vk
+    vg = np.asarray(got[7]) > 0.5
+    dis = vr != vg
     if dis.any():
-        graze = np.abs(np.where(vr, np.asarray(ref[6]), np.asarray(ker[6])))
+        graze = np.abs(np.where(vr, np.asarray(ref[6]), np.asarray(got[6])))
         assert graze[dis].max() < 1e-5, "non-graze validity disagreement"
-    both = vr & vk
-    assert both.sum() > (50 if n_envs == 8 else 1000)  # scene is live
+    both = vr & vg
+    assert both.sum() > min_live  # scene is live
     names = "ptx pty ptz nmx nmy nmz depth".split()
     for i, name in enumerate(names):
         np.testing.assert_allclose(
-            np.asarray(ker[i])[both], np.asarray(ref[i])[both],
+            np.asarray(got[i])[both], np.asarray(ref[i])[both],
             atol=5e-6, err_msg=name,
         )
     np.testing.assert_array_equal(
-        np.asarray(ker[8])[both], np.asarray(ref[8])[both],
+        np.asarray(got[8])[both], np.asarray(ref[8])[both],
         err_msg="cand id",
     )
     for i, name in ((9, "friction"), (10, "restitution"), (11, "trigger")):
         np.testing.assert_array_equal(
-            np.asarray(ker[i]), np.asarray(ref[i]), err_msg=name
+            np.asarray(got[i]), np.asarray(ref[i]), err_msg=name
         )
 
 
+@pytest.mark.parametrize("n_envs", [8, 128])
+def test_sat_fleet_vmap_matches_per_scene(n_envs):
+    """The fleet narrowphase (vmapped SAT, the path every fleet step
+    takes) matches the per-scene SAT of each env."""
+    ga, gb, pvf = _fleet_sat_inputs(n_envs)
+    fleet = jax.jit(jax.vmap(pp._sat_ref))(ga, gb, pvf)
+    one = jax.jit(pp._sat_ref)
+    per = [one(ga[e], gb[e], pvf[e]) for e in range(n_envs)]
+    ref = tuple(jnp.stack([p[i] for p in per]) for i in range(12))
+    _assert_sat_outputs_agree(fleet, ref, 50 if n_envs == 8 else 1000)
+
+
 @pytest.mark.parametrize("n_envs", [8, 16])
-def test_solve_fleet_pallas_interpret_matches_ref(n_envs):
-    """The Pallas solve-iteration kernel (the on-TPU fleet path) matches
-    the XLA iteration core on a settled mixed fleet: velocities and
-    accumulated impulses to f32-reassociation tolerance."""
+def test_solve_fleet_vmap_matches_per_scene(n_envs):
+    """The vmapped velocity solve matches the per-scene solve on a mixed
+    fleet: velocities and accumulated impulses to f32-reassociation
+    tolerance."""
     params = SolverParams(max_pairs=128, iterations=6)
-    jacs, ohas, ohbs, vws = [], [], [], []
+    ps, cons, ias, ibs = [], [], [], []
     for e in range(n_envs):
         b = mixed_scene(seed=50 + e, with_caps=(e % 2 == 0))
         p = pp.planar_from_rigid(b)
         p = pp.planar_integrate_velocities(p, params.dt, params.gravity)
         ia, ib, val, _ = pp.planar_broadphase(p, params.max_pairs)
-        con = pp.planar_contacts(p, ia, ib, val)
-        # capture the packed operands planar_solve builds by running the
-        # dispatcher path and intercepting its inputs
-        captured = {}
-        orig = pp._solve_iterate
-
-        def spy(iters):
-            fn = orig(iters)
-            def wrapper(jac, oa, ob, vw0):
-                captured.update(jac=jac, oa=oa, ob=ob, vw0=vw0)
-                return fn(jac, oa, ob, vw0)
-            return wrapper
-        pp._solve_iterate = spy
-        try:
-            pp.planar_solve(p, con, params, ia, ib)
-        finally:
-            pp._solve_iterate = orig
-        jacs.append(captured["jac"])
-        ohas.append(captured["oa"])
-        ohbs.append(captured["ob"])
-        vws.append(captured["vw0"])
-    jac = jnp.stack(jacs)
-    oa, ob = jnp.stack(ohas), jnp.stack(ohbs)
-    vw0 = jnp.stack(vws)
-    ref_vw, ref_lam = jax.vmap(
-        lambda *a: pp._solve_iter_core(*a, iterations=params.iterations)
-    )(jac, oa, ob, vw0)
-    ker_vw, ker_lam = pp._solve_fleet_pallas(
-        jac, oa, ob, vw0,
-        iterations=params.iterations, interpret=True,
+        ps.append(p)
+        cons.append(pp.planar_contacts(p, ia, ib, val))
+        ias.append(ia)
+        ibs.append(ib)
+    solve = lambda p, c, ia, ib: pp.planar_solve(p, c, params, ia, ib)
+    stack = lambda xs: jax.tree.map(lambda *a: jnp.stack(a), *xs)
+    vel, om, lam, _ = jax.jit(jax.vmap(solve))(
+        stack(ps), stack(cons), jnp.stack(ias), jnp.stack(ibs)
     )
-    np.testing.assert_allclose(
-        np.asarray(ker_vw), np.asarray(ref_vw), atol=2e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(ker_lam), np.asarray(ref_lam), atol=2e-5
-    )
+    one = jax.jit(solve)
+    for e in range(n_envs):
+        v1, o1, l1, _ = one(ps[e], cons[e], ias[e], ibs[e])
+        for a, r in ((vel, v1), (om, o1)):
+            np.testing.assert_allclose(
+                stk3(jax.tree.map(lambda x: x[e], a)), stk3(r), atol=2e-5
+            )
+        for k in range(3):
+            np.testing.assert_allclose(
+                np.asarray(lam[k][e]), np.asarray(l1[k]), atol=2e-5
+            )
 
 
 def test_shape_kinds_box_specialization_matches():
     """SolverParams(shape_kinds=('box',)) on a box-only scene produces
     IDENTICAL contacts and trajectories to the general narrowphase (the
-    dropped generators never fire on box-only scenes) — in both the
-    XLA reference and the Pallas kernel (interpret)."""
+    dropped generators never fire on box-only scenes) — per scene and
+    across a vmapped fleet."""
     b = mixed_scene(with_caps=False)  # boxes only
     p = pp.planar_from_rigid(b)
     params = SolverParams(max_pairs=64, iterations=4)
@@ -414,7 +401,7 @@ def test_shape_kinds_box_specialization_matches():
         atol=5e-6,
     )
 
-    # fleet kernel path (interpret): box hint == general on 8 box envs
+    # fleet path: box hint == general on 8 vmapped box envs
     gas, gbs, pvs = [], [], []
     for e in range(8):
         bb = mixed_scene(seed=200 + e, with_caps=False)
@@ -423,30 +410,14 @@ def test_shape_kinds_box_specialization_matches():
         ga, gb_, pvf = pp._sat_inputs(pb, i2, j2, v2)
         gas.append(ga); gbs.append(gb_); pvs.append(pvf)
     ga, gb_, pvf = jnp.stack(gas), jnp.stack(gbs), jnp.stack(pvs)
-    out_g = pp._sat_fleet_pallas(ga, gb_, pvf, interpret=True)
-    out_b = pp._sat_fleet_pallas(ga, gb_, pvf, interpret=True,
-                                 kinds=("box",))
+    out_g = jax.jit(jax.vmap(pp._sat_ref))(ga, gb_, pvf)
+    out_b = jax.jit(jax.vmap(lambda *a: pp._sat_ref(*a, kinds=("box",))))(
+        ga, gb_, pvf
+    )
     # the two graphs compile with different fusion/FMA choices, so float
     # planes carry ~1e-6 drift; graze-depth validity flips are the only
-    # permitted discrete divergence (same contract as the kernel-vs-ref
-    # test above)
-    vg = np.asarray(out_g[7]) > 0.5
-    vb = np.asarray(out_b[7]) > 0.5
-    dis = vg != vb
-    if dis.any():
-        graze = np.abs(np.where(vg, np.asarray(out_g[6]),
-                                np.asarray(out_b[6])))
-        assert graze[dis].max() < 1e-5
-    both = vg & vb
-    assert both.sum() > 200
-    for i in range(7):
-        np.testing.assert_allclose(
-            np.asarray(out_b[i])[both], np.asarray(out_g[i])[both],
-            atol=5e-6, err_msg=str(i),
-        )
-    np.testing.assert_array_equal(
-        np.asarray(out_b[8])[both], np.asarray(out_g[8])[both]
-    )
+    # permitted discrete divergence
+    _assert_sat_outputs_agree(out_b, out_g, 200)
 
     # trajectories with the params-level hint stay together (graph-level
     # FMA drift only)
@@ -519,45 +490,53 @@ def test_fused_step_matches_staged(with_caps):
     )
 
 
-@pytest.mark.parametrize("n_envs", [8, 16])
-def test_fused_middle_pallas_interpret_matches_primal(n_envs):
-    """The fused middle Pallas kernel (the on-TPU fleet path) matches the
-    per-scene primal on a warm mixed fleet: velocities, impulses and the
-    discrete contact outputs."""
-    params = SolverParams(max_pairs=128, iterations=6)
-    rows_l, ia_l, ib_l, pv_l, ka_l, vw_l = [], [], [], [], [], []
-    for e in range(n_envs):
-        b = pp.planar_from_rigid(
-            mixed_scene(seed=90 + e, with_caps=(e % 2 == 0))
-        )
-        cache = pp.empty_planar_cache(params.max_pairs)
-        # two staged steps to warm the cache so the warm-gather path is live
-        for _ in range(2):
-            b, cache = _staged_step(b, params, cache)
+def _warm_middle_args(n_envs, params):
+    """Fleet operands of the fused middle after two warm-up steps, so the
+    warm-gather path is live."""
+    fleet = jax.tree.map(
+        lambda *xs: jnp.stack(xs),
+        *[pp.planar_from_rigid(mixed_scene(seed=90 + e, with_caps=(e % 2 == 0)))
+          for e in range(n_envs)],
+    )
+    cache = jax.tree.map(
+        lambda x: jnp.broadcast_to(x, (n_envs,) + x.shape),
+        pp.empty_planar_cache(params.max_pairs),
+    )
+    warm = jax.jit(jax.vmap(lambda b, c: _staged_step(b, params, c)))
+    for _ in range(2):
+        fleet, cache = warm(fleet, cache)
+
+    def operands(b, cache):
         b = pp.planar_integrate_velocities(b, params.dt, params.gravity)
         ia, ib, val, _ = pp.planar_broadphase(b, params.max_pairs)
         ka, kb = pp._pair_keys(ia, ib, val, None)
-        rows_l.append(pp._middle_rows(b))
-        ia_l.append(ia); ib_l.append(ib)
-        pv_l.append(val.astype(jnp.float32))
-        ka_l.append(pp._warm_prev(cache, ka, kb, val))
-        vw_l.append(jnp.stack(
+        vw = jnp.stack(
             [b.vel.x, b.vel.y, b.vel.z, b.omega.x, b.omega.y, b.omega.z],
-            axis=-2))
-    args = tuple(
-        jnp.stack(x) for x in (rows_l, ia_l, ib_l, pv_l, ka_l, vw_l)
-    )
-    ref = jax.vmap(
-        lambda *a: pp._middle_core(
-            *a, params=params, use_stack=True, kinds=params.shape_kinds)
-    )(*args)
-    ker = pp._middle_fleet_pallas(
-        *args, params=params, kinds=params.shape_kinds, interpret=True
-    )
-    vwc_r, lam_r, cand_r, val_r, trig_r = [np.asarray(x) for x in ref]
-    vwc_k, lam_k, cand_k, val_k, trig_k = [np.asarray(x) for x in ker]
-    # discrete contract: graze-depth validity flips only (same as the SAT
-    # kernel test); both-valid slots must agree on candidate ids
+            axis=-2,
+        )
+        return (pp._middle_rows(b), ia, ib, val.astype(jnp.float32),
+                pp._warm_prev(cache, ka, kb, val), vw)
+
+    return jax.jit(jax.vmap(operands))(fleet, cache)
+
+
+@pytest.mark.parametrize("n_envs", [8, 16, 128])
+def test_fused_middle_fleet_vmap_matches_primal(n_envs):
+    """The fleet middle (vmapped _middle_core, the only fleet path)
+    matches the per-scene primal on a warm mixed fleet: velocities,
+    impulses and the discrete contact outputs."""
+    params = SolverParams(max_pairs=128, iterations=6)
+    args = _warm_middle_args(n_envs, params)
+    core = lambda *a: pp._middle_core(*a, params=params,
+                                      kinds=params.shape_kinds)
+    fleet = [np.asarray(x) for x in jax.jit(jax.vmap(core))(*args)]
+    one = jax.jit(core)
+    per = [one(*(a[e] for a in args)) for e in range(n_envs)]
+    ref = [np.stack([np.asarray(p[i]) for p in per]) for i in range(5)]
+    vwc_r, lam_r, cand_r, val_r, trig_r = ref
+    vwc_k, lam_k, cand_k, val_k, trig_k = fleet
+    # discrete contract: graze-depth validity flips only; both-valid
+    # slots must agree on candidate ids
     both = (val_r > 0.5) & (val_k > 0.5)
     assert both.sum() > 40
     np.testing.assert_array_equal(cand_k[both], cand_r[both])

@@ -235,7 +235,7 @@ def test_pair_overflow_reported_not_silent():
 
 @pytest.mark.slow
 def test_one_hot_and_scatter_solve_paths_agree(monkeypatch):
-    """The MXU one-hot solve (small scenes) and the row-scatter solve
+    """The one-hot matmul solve (small scenes) and the row-scatter solve
     (huge scenes) are the same algorithm — results must match closely."""
     import numpy as np
 

@@ -141,125 +141,85 @@ def test_cluster_batched_matches_single():
         )
 
 
-def test_cluster_packed_layout_matches():
-    """Packed setup blocks (4 tris per 128-lane row) == the padded layout.
-
-    The packed formulation quarters raster DMA traffic and VMEM scratch;
-    slot-major triangle order inside a cluster is an internal permutation
-    (pass A codes and pass B one-hot use the same accessors), so the
-    G-buffer must be identical up to depth ties.
-
-    TIE CAVEAT (the explicit equivalence contract): when two triangles of
-    the same cluster land EXACTLY equal depth on a pixel, the in-cluster
-    argmin resolves by slot order, which the packed permutation changes —
-    either tied triangle's attributes are accepted behavior. This scene
-    has no exact ties, so the assert below is exact; a scene with
-    constructed ties may legitimately differ in attribute (never depth)
-    on tied pixels."""
+def _cube_scene(params, n=3):
     pool = rd.build_mesh_pool()
+    vp = rd.camera_view_proj(
+        jnp.asarray([1.5, 1.2, 2.5]), jnp.asarray([0.0, 0.0, 0.0]),
+        jnp.asarray([0.0, 1.0, 0.0]), aspect=params.width / params.height,
+    )
+    placements = [(0.0, 0.0, 0.3), (1.2, -0.5, 0.9), (-1.0, 0.4, 0.0),
+                  (0.4, 1.1, 1.7)][:n]
+    models = [
+        m3.mat4_trs(
+            jnp.asarray([dx, 0.0, dz]), jnp.asarray([0.0, a, 0.0]), jnp.ones(3)
+        )
+        for dx, dz, a in placements
+    ]
+    draws = rd.DrawList(
+        mesh_id=jnp.full((n,), rd.MESH_CUBE, jnp.int32),
+        material_id=jnp.arange(n, dtype=jnp.int32),
+        model=jnp.stack(models),
+        valid=jnp.ones((n,), bool),
+    )
+    return pipe.setup_triangles(draws, pool, vp, params)
+
+
+def test_cluster_hz_exit_matches_full_walk():
+    """The hierarchical-z exit on near-to-far lists is exact: identical to
+    walking every listed cluster."""
     params = rd.RasterParams(
         width=256, height=64, tile_h=16, tile_w=128,
         max_tris=256, max_tris_per_tile=64, max_clusters_per_tile=4,
         interpret=True,
     )
-    vp = rd.camera_view_proj(
-        jnp.asarray([1.5, 1.2, 2.5]), jnp.asarray([0.0, 0.0, 0.0]),
-        jnp.asarray([0.0, 1.0, 0.0]), aspect=256 / 64,
-    )
-    models = [
-        m3.mat4_trs(
-            jnp.asarray([dx, 0.0, dz]), jnp.asarray([0.0, a, 0.0]), jnp.ones(3)
-        )
-        for dx, dz, a in [(0.0, 0.0, 0.3), (1.2, -0.5, 0.9), (-1.0, 0.4, 0.0)]
-    ]
-    draws = rd.DrawList(
-        mesh_id=jnp.full((3,), rd.MESH_CUBE, jnp.int32),
-        material_id=jnp.arange(3, dtype=jnp.int32),
-        model=jnp.stack(models),
-        valid=jnp.ones((3,), bool),
-    )
-    setup, aabb, valid = pipe.setup_triangles(draws, pool, vp, params)
+    setup, aabb, valid = _cube_scene(params)
     cl_aabb, cl_valid, cl_zmin = rc.cluster_bounds(
         aabb, valid, params.max_tris, setup
     )
     cl_ids, cl_counts = rc.bin_clusters(cl_aabb, cl_valid, params, 4,
                                         cl_zmin=cl_zmin)
-    base = rc.rasterize_clusters(setup, cl_ids, cl_counts, params, 4,
-                                 cl_zmin=cl_zmin, packed=False)
+    full = rc.rasterize_clusters(setup, cl_ids, cl_counts, params, 4)
     got = rc.rasterize_clusters(setup, cl_ids, cl_counts, params, 4,
-                                cl_zmin=cl_zmin, packed=True)
+                                cl_zmin=cl_zmin)
     for k in ("depth", "color", "uv"):
-        np.testing.assert_allclose(
-            np.asarray(got[k]), np.asarray(base[k]), atol=1e-6
-        )
-    np.testing.assert_array_equal(np.asarray(got["mat"]), np.asarray(base["mat"]))
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(full[k]))
+    np.testing.assert_array_equal(np.asarray(got["mat"]), np.asarray(full["mat"]))
 
     # batched path, 2 envs
     e = 2
-    setup_b = jnp.broadcast_to(setup, (e,) + setup.shape)
-    ids_b = jnp.broadcast_to(cl_ids, (e,) + cl_ids.shape)
-    counts_b = jnp.broadcast_to(cl_counts, (e,) + cl_counts.shape)
-    zmin_b = jnp.broadcast_to(cl_zmin, (e,) + cl_zmin.shape)
-    bb = rc.rasterize_clusters_batched(
-        setup_b, ids_b, counts_b, params, 4, cl_zmin=zmin_b, packed=False
-    )
+    bcast = lambda x: jnp.broadcast_to(x, (e,) + x.shape)
     gb = rc.rasterize_clusters_batched(
-        setup_b, ids_b, counts_b, params, 4, cl_zmin=zmin_b, packed=True
+        bcast(setup), bcast(cl_ids), bcast(cl_counts), params, 4,
+        cl_zmin=bcast(cl_zmin),
     )
-    np.testing.assert_allclose(
-        np.asarray(gb["depth"]), np.asarray(bb["depth"]), atol=1e-6
-    )
-    np.testing.assert_array_equal(np.asarray(gb["mat"]), np.asarray(bb["mat"]))
+    for i in range(e):
+        np.testing.assert_array_equal(
+            np.asarray(gb["depth"][i]), np.asarray(full["depth"])
+        )
+        np.testing.assert_array_equal(
+            np.asarray(gb["mat"][i]), np.asarray(full["mat"])
+        )
 
 
-def test_cluster_batched_chunking_matches():
-    """Env chunking (SMEM budget) must not change results."""
-    pool = rd.build_mesh_pool()
+def test_cluster_batched_matches_reference_per_env():
+    """Envs of one batch rasterize independently: each env's G-buffer from
+    the batched cluster path matches rasterize_reference on its own setup
+    (envs differ in geometry, so a mixed-up env offset shows)."""
     params = rd.RasterParams(
         width=128, height=32, tile_h=16, tile_w=128,
         max_tris=64, max_clusters_per_tile=4, interpret=True,
     )
-    vp = rd.camera_view_proj(
-        jnp.asarray([1.2, 1.0, 2.2]), jnp.asarray([0.0, 0.0, 0.0]),
-        jnp.asarray([0.0, 1.0, 0.0]), aspect=128 / 32,
-    )
-    draws = rd.DrawList(
-        mesh_id=jnp.full((2,), rd.MESH_CUBE, jnp.int32),
-        material_id=jnp.arange(2, dtype=jnp.int32),
-        model=jnp.stack([
-            m3.mat4_trs(jnp.asarray([dx, 0.0, 0.0]), jnp.zeros(3), jnp.ones(3))
-            for dx in (-0.7, 0.7)
-        ]),
-        valid=jnp.ones((2,), bool),
-    )
-    setup, aabb, valid = pipe.setup_triangles(draws, pool, vp, params)
-    e = 4
-    setup_b = jnp.broadcast_to(setup, (e,) + setup.shape)
-    aabb_b = jnp.broadcast_to(aabb, (e,) + aabb.shape)
-    valid_b = jnp.broadcast_to(valid, (e,) + valid.shape)
-
-    full, _ = pipe.raster_gbuffer_batched(setup_b, aabb_b, valid_b, params)
-
-    import functools as ft
-
-    from scx.ops.raster_clusters import rasterize_clusters_batched
-
-    def prep(s, a, v):
-        cl_aabb, cl_valid, cl_zmin = rc.cluster_bounds(a, v, params.max_tris, s)
-        c_aabb, c_valid, c_zmin, order, _ = rc.compact_clusters(
-            cl_aabb, cl_valid, cl_zmin
+    envs = [_cube_scene(params, n) for n in (1, 2, 1, 2)]
+    setup = jnp.stack([x[0] for x in envs])
+    aabb = jnp.stack([x[1] for x in envs])
+    valid = jnp.stack([x[2] for x in envs])
+    got, stats = pipe.raster_gbuffer_batched(setup, aabb, valid, params)
+    assert int(stats["cluster_drop"]) == 0
+    for i in range(len(envs)):
+        ref = ops.rasterize_reference(setup[i], params)
+        np.testing.assert_allclose(
+            np.asarray(got["depth"][i]), np.asarray(ref["depth"]), atol=1e-5
         )
-        ids, counts = rc.bin_clusters(c_aabb, c_valid, params, 4, cl_zmin=c_zmin)
-        return order[ids], counts, cl_zmin
-
-    import jax
-
-    ids, counts, zmin = jax.vmap(prep)(setup_b, aabb_b, valid_b)
-    # force 2-env chunks
-    small = rasterize_clusters_batched(
-        setup_b, ids, counts, params, 4, cl_zmin=zmin,
-        smem_budget=2 * params.n_tiles * 5 * 4,
-    )
-    np.testing.assert_allclose(
-        np.asarray(full["depth"]), np.asarray(small["depth"]), atol=1e-6
-    )
+        np.testing.assert_array_equal(
+            np.asarray(got["mat"][i]), np.asarray(ref["mat"])
+        )

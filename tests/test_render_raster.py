@@ -1,9 +1,11 @@
-"""Rasterizer: reference-vs-Pallas(interpret) equivalence, depth test,
-perspective correctness, end-to-end cube frame."""
+"""Rasterizer: reference-vs-kernel (Pallas interpret mode) equivalence,
+depth test, perspective correctness, end-to-end cube frame, sub-tile
+choice, padding and empty tiles."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from scx import render as rd
 from scx.core import math3d as m3
@@ -205,3 +207,109 @@ def test_bin_triangles_batched_matches_vmap():
     b_new, c_new = bin_triangles_batched(setup, aabb, valid, p)
     np.testing.assert_array_equal(np.asarray(c_ref), np.asarray(c_new))
     np.testing.assert_allclose(np.asarray(b_ref), np.asarray(b_new), rtol=0, atol=0)
+
+
+def _cubes_setup(params, camera=(1.5, 1.2, 2.5)):
+    pool = rd.build_mesh_pool()
+    vp = rd.camera_view_proj(
+        jnp.asarray(camera), jnp.asarray([0.0, 0.0, 0.0]),
+        jnp.asarray([0.0, 1.0, 0.0]), aspect=params.width / params.height,
+    )
+    models = [
+        m3.mat4_trs(
+            jnp.asarray([dx, 0.0, dz]), jnp.asarray([0.0, a, 0.0]), jnp.ones(3)
+        )
+        for dx, dz, a in [(0.0, 0.0, 0.3), (1.2, -0.5, 0.9), (-1.0, 0.4, 0.0)]
+    ]
+    draws = rd.DrawList(
+        mesh_id=jnp.full((3,), rd.MESH_CUBE, jnp.int32),
+        material_id=jnp.arange(3, dtype=jnp.int32),
+        model=jnp.stack(models),
+        valid=jnp.ones((3,), bool),
+    )
+    return pipe.setup_triangles(draws, pool, vp, params)
+
+
+def _kernel_gbuffer(setup, aabb, valid, params):
+    """G-buffer through the kernel of params' list form."""
+    _, g, _ = pipe._raster_and_shade(setup, aabb, valid, params, None, None)
+    return g
+
+
+def _assert_matches_reference(got, ref):
+    np.testing.assert_allclose(
+        np.asarray(got["depth"]), np.asarray(ref["depth"]), atol=1e-5
+    )
+    np.testing.assert_array_equal(np.asarray(got["mat"]), np.asarray(ref["mat"]))
+    np.testing.assert_allclose(
+        np.asarray(got["color"]), np.asarray(ref["color"]), atol=1e-4
+    )
+    np.testing.assert_allclose(
+        np.asarray(got["uv"]), np.asarray(ref["uv"]), atol=1e-4
+    )
+
+
+@pytest.mark.parametrize("use_clusters", [False, True])
+@pytest.mark.parametrize("sub", [(8, 16), (16, 16), (16, 64), (32, 32)])
+def test_subtile_choice_matches_reference(sub, use_clusters):
+    """Every program sub-tile gives the reference G-buffer."""
+    params = small_params(
+        tile_h=32, sub_h=sub[0], sub_w=sub[1], use_clusters=use_clusters,
+        max_clusters_per_tile=8,
+    )
+    assert ops.sub_tile(params) == sub
+    setup, aabb, valid = _cubes_setup(params)
+    _assert_matches_reference(
+        _kernel_gbuffer(setup, aabb, valid, params),
+        ops.rasterize_reference(setup, params),
+    )
+
+
+@pytest.mark.parametrize("use_clusters", [False, True])
+def test_odd_frame_size_is_padded(use_clusters):
+    """A 200x72 frame pads to whole bin tiles and crops back exactly."""
+    params = small_params(
+        width=200, height=72, use_clusters=use_clusters,
+        max_clusters_per_tile=8,
+    )
+    assert params.tiles_x * params.tile_w > 200
+    assert params.tiles_y * params.tile_h > 72
+    setup, aabb, valid = _cubes_setup(params)
+    got = _kernel_gbuffer(setup, aabb, valid, params)
+    assert got["depth"].shape == (72, 200)
+    assert got["color"].shape == (72, 200, 3)
+    assert bool(got["covered"].any())
+    _assert_matches_reference(got, ops.rasterize_reference(setup, params))
+
+
+@pytest.mark.parametrize("use_clusters", [False, True])
+def test_empty_tiles_stay_background(use_clusters):
+    """Tiles with an empty list (and a frame with no live triangle at all)
+    give depth 1, zero attributes and no coverage."""
+    params = small_params(use_clusters=use_clusters, max_clusters_per_tile=8)
+    setup, aabb, valid = _cubes_setup(params)
+    # the cubes leave the top tile row empty
+    _, counts = pipe.bin_triangles(setup, aabb, valid, params)
+    assert int(counts[0]) == 0 and int(counts.max()) > 0
+    g = _kernel_gbuffer(setup, aabb, valid, params)
+    _assert_matches_reference(g, ops.rasterize_reference(setup, params))
+    dead = jnp.zeros_like(valid)
+    g0 = _kernel_gbuffer(setup, aabb, dead, params)
+    assert not bool(g0["covered"].any())
+    np.testing.assert_array_equal(np.asarray(g0["depth"]), 1.0)
+    np.testing.assert_array_equal(np.asarray(g0["color"]), 0.0)
+    np.testing.assert_array_equal(np.asarray(g0["mat"]), 0)
+
+
+@pytest.mark.parametrize(
+    "tile,want,got",
+    [((64, 128), (32, 32), (32, 32)), ((16, 128), (32, 32), (16, 32)),
+     ((8, 64), (16, 64), (8, 64)), ((24, 96), (32, 64), (8, 32))],
+)
+def test_sub_tile_fits_bin_tile(tile, want, got):
+    """The program sub-tile is the largest power of two <= the requested
+    size that divides the bin tile."""
+    params = rd.RasterParams(
+        tile_h=tile[0], tile_w=tile[1], sub_h=want[0], sub_w=want[1]
+    )
+    assert ops.sub_tile(params) == got

@@ -1,8 +1,8 @@
 """Spatially-sharded ('sp') rendering: render_frame_rows strips must equal
 the full-frame render — per strip, and composed over a shard_map mesh.
 
-The reference has no multi-GPU render; this is the TPU build's answer to
-one frame too big for a chip (SURVEY §2 parallelism item 6)."""
+The reference has no multi-GPU render; strips are this engine's answer to
+one frame too big for a device (SURVEY §2 parallelism item 6)."""
 
 import dataclasses
 
@@ -47,6 +47,17 @@ def test_strips_compose_to_full_frame(use_clusters):
     )
     pool, vp, draws = _scene(params)
     full_rgb, full_g, _ = pipe.render_frame(draws, pool, vp, params)
+    # the full frame itself is the reference rasterizer's G-buffer
+    from scx.ops.raster import rasterize_reference
+
+    d = pipe.sort_draws_spatial(draws, vp, params) if use_clusters else draws
+    ref = rasterize_reference(pipe.setup_triangles(d, pool, vp, params)[0], params)
+    np.testing.assert_allclose(
+        np.asarray(full_g["depth"]), np.asarray(ref["depth"]), atol=1e-5
+    )
+    np.testing.assert_array_equal(
+        np.asarray(full_g["mat"]), np.asarray(ref["mat"])
+    )
 
     strip_rows = 16
     strips = []
